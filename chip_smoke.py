@@ -12,21 +12,37 @@ Phases (any failure raises and the script exits non-zero):
    from nfclab_torch/csrc with nvcc and print the ptxas register and spill
    lines; build the native host library.
 2. Kernels against their plain PyTorch versions, on the card: 1024 streams
-   x 2 chunks of 4096 samples with carried state, once with every output
-   and once with detect_mask alone; every output and the state must be
-   bit-exact.  Conditioning must be bit-exact against the C++ oracle on 8
-   streams.  Repeated at 3.2 MS/s.
-3. Both kernels against their plain versions at the main path's shape
-   and on its inputs: two [65536, 1024] chunks of the main path's captures,
-   the second with carried state at a folded clock base; bit-exact again.
-   Kernel times on those inputs, plain times from the comparison.
-4. The main path at full width: chained_batch_masks over 1024 captures of
+   x 2 chunks of 4096 samples with carried state -- the fused frontend
+   kernels once with every output and once with detect_mask alone, the
+   conditioning kernel from a seeded initial state with non-zero clocks and
+   pulse counts; every output and the state must be bit-exact.
+   Conditioning must be bit-exact against the C++ oracle on 8 streams, for
+   both kernels.  Repeated at 3.2 MS/s.
+3. The kernels against their plain versions at the main paths' shape and
+   on their inputs: two [65536, 1024] chunks of the mask path's captures,
+   the second with carried state at a folded clock base, and one 1024 x
+   65536 chunk with carried state for the conditioning kernel; bit-exact
+   again.  Kernel times on those inputs (CUDA events over 5 launches),
+   plain times from the comparison.
+4. The mask path at full width: chained_batch_masks over 1024 captures of
    2,097,152 samples at 10 MS/s (one production window: 32 chunks of
    65536), the launch counts read around exactly that call and its time
    split by step (StepTimes, each step ended by a device sync).
 5. One capture of each synthetic template decoded to frames from the
    device triggers; they must equal the host-frontend frames and the
    bytes the synthesizer wrote.  Then the CLI with --frontend mask.
+6. The dense frontend at full width: jitted_frontend(10 MS/s) over 1024
+   streams x 65536 samples of the mask path's captures (time per call,
+   samples/s, peak memory, conditioning launches per call), held against
+   the same call on the CPU on 64 of the streams.
+7. The device conditioner on a long capture: condition_jax over 2**25
+   samples of the templates with long field-off stretches, bit-exact
+   against the C++ oracle with its repair count and the time of its host
+   edge tracker alone; then the conditioning
+   path -- NfcDecoder(conditioner="jax") over that capture, launch counts
+   read around exactly that call -- gives the native frames;
+   decode_batch(conditioner="jax") and the CLI with --conditioner jax give
+   the native frames of the template WAVs.
 
 The line before the last is the card's name and power limit; the one
 before it a JSON object with one entry per kernel.  The last line is
@@ -52,6 +68,11 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12     # f32 outside the tensor cores
 TPU_KERNEL = "nfclab/dsp/pallas/fused_frontend.py:259"
 SOURCE = "nfclab_torch/csrc/fused_frontend.cu"
+COND_TPU_KERNEL = "nfclab/dsp/pallas/conditioner_kernel.py:31"
+COND_SOURCE = "nfclab_torch/csrc/conditioner.cu"
+COND_OPS = 22             # float and counter operations per sample
+LONG = 1 << 25            # the long capture of phase 7 (3.36 s, 512 blocks)
+DENSE_CPU_STREAMS = 64    # streams of phase 6's CPU comparison
 
 
 def log(*a):
@@ -202,6 +223,155 @@ def check_oracle(x, outs_all, rate, lanes=8):
     log(f"conditioning == C++ oracle (bit-exact) on {lanes} lanes at {rate} Hz")
 
 
+COND_NAMES = ("env", "w1", "mdev", "avg", "filt", "pulse")
+
+
+def _cond_init(x0, rate, seed):
+    """A seeded initial conditioning state for streams whose first sample
+    is x0 ([B]): envelope near x0, w1 at its steady state, a small
+    deviation, pulse counts up to twice the silence timeout and clocks up
+    to three ETU (some streams still in the seeding window)."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import SignalParams
+
+    etu = SignalParams(rate).elementary_time_unit
+    rng = np.random.default_rng(seed)
+    b, dev = x0.shape[0], x0.device
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    env0 = x0 * t(rng.uniform(0.9, 1.1, b).astype(np.float32))
+    mdev0 = t(rng.uniform(0.0, 1e-3, b).astype(np.float32))
+    pulse0 = t(rng.integers(0, 20 * etu, b).astype(np.int32))
+    clock0 = t(rng.integers(0, 3 * etu, b).astype(np.int32))
+    return env0, x0 * 10.0, mdev0, x0.clone(), pulse0, clock0
+
+
+def _cond_carry(outs, clock):
+    """The state after the last column of condition_scan's [B, T]
+    outputs, for a chunk that starts at `clock`."""
+    env, w1, mdev, avg, _, pulse = (o[:, -1].contiguous() for o in outs)
+    return env, w1, mdev, avg, pulse, clock
+
+
+def _cond_compare(got, want, errs, what):
+    for name, a, b in zip(COND_NAMES, got, want):
+        e = _err(a.float(), b.float())
+        errs["condition_scan"] = max(errs["condition_scan"], e)
+        if not _same(a, b):
+            raise AssertionError(
+                f"condition_scan {name} != plain, {what}: max err {e}")
+
+
+def check_condition_kernel(dev, rate, chunk, n_chunks, errs, lanes=8):
+    """cond_scan_kernel against condition_scan_plain on the card: STREAMS
+    streams x n_chunks chunks from a seeded initial state with non-zero
+    clocks and pulse counts, the state carried from chunk to chunk; the
+    chained chunks equal one call over the whole span; and, from a fresh
+    state at clock 0, the C++ oracle on `lanes` streams."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp.frontend import _params_tuple
+    from nfclab_torch.native import condition_exact
+    from torch_synth import mixed_lanes
+
+    params = SignalParams(rate)
+    pt = _params_tuple(params)
+    x = torch.from_numpy(mixed_lanes(STREAMS, n_chunks * chunk,
+                                     seed=13)).to(dev)
+    init = _cond_init(x[:, 0], rate, seed=17)
+    st_k = st_p = init
+    parts = []
+    for c in range(n_chunks):
+        xc = x[:, c * chunk : (c + 1) * chunk]
+        got = ck.condition_scan(xc, *st_k, pt)
+        want = ck.condition_scan_plain(xc, *st_p, pt)
+        _cond_compare(got, want, errs, f"{rate} Hz, chunk {c}")
+        parts.append(got)
+        st_k = _cond_carry(got, init[5] + (c + 1) * chunk)
+        st_p = _cond_carry(want, init[5] + (c + 1) * chunk)
+    whole = ck.condition_scan(x, *init, pt)
+    chained = [torch.cat([p[i] for p in parts], 1) for i in range(6)]
+    _cond_compare(whole, chained, errs, f"{rate} Hz, one call vs chained")
+    torch.cuda.synchronize()
+    log(f"condition_scan == plain (bit-exact) at {rate} Hz, {STREAMS} "
+        f"streams x {n_chunks} x {chunk}, carried state, clocks from "
+        f"{int(init[5].min())} to {int(init[5].max())}")
+
+    z = torch.zeros(lanes, dtype=torch.float32, device=dev)
+    zi = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    env, _, mdev, avg, filt, _ = ck.condition_scan(x[:lanes], z, z, z, z,
+                                                   zi, zi, pt)
+    xs = x[:lanes].cpu().numpy()
+    for i in range(lanes):
+        c = condition_exact(xs[i], params)
+        for name, a, ref in (("envelope", env, c.envelope),
+                             ("filtered", filt, c.filtered),
+                             ("deviation", mdev, c.deviation),
+                             ("average", avg, c.average)):
+            got = a[i].cpu().numpy()
+            same = (got.view(np.uint32) == ref.view(np.uint32)) | (
+                np.isnan(got) & np.isnan(ref))
+            if not same.all():
+                raise AssertionError(
+                    f"condition_scan {name} lane {i} != C++ oracle at "
+                    f"{int((~same).sum())} samples ({rate} Hz)")
+    log(f"condition_scan == C++ oracle (bit-exact) on {lanes} lanes at "
+        f"{rate} Hz")
+
+
+def check_condition_main_shape(dev, caps, errs):
+    """cond_scan_kernel against its plain version at the main path's
+    shape, on its captures: one [65536, 1024] chunk (the second of each
+    capture) from the state the kernel carried out of the first, at clock
+    65536.  Kernel time on those inputs, plain time from the comparison
+    run, and the bound."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp.frontend import _params_tuple
+
+    pt = _params_tuple(SignalParams(RATE))
+    chunk = 65536
+
+    def tm(c):
+        return torch.from_numpy(np.stack(
+            [cp[c * chunk : (c + 1) * chunk] for cp in caps], 1)).to(dev)
+
+    z = torch.zeros(STREAMS, dtype=torch.float32, device=dev)
+    zi = torch.zeros(STREAMS, dtype=torch.int32, device=dev)
+    out0 = ck.condition_scan_tm(tm(0), z, z, z, z, zi, zi, pt)
+    init = tuple(out0[i][-1].contiguous() for i in (0, 1, 2, 3, 5)) + (
+        torch.full((STREAMS,), chunk, dtype=torch.int32, device=dev),)
+    del out0
+    x1 = tm(1)
+    got = ck.condition_scan_tm(x1, *init, pt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ck._scan_plain_tm(x1, init, pt)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _cond_compare(got, want, errs, f"{STREAMS} x {chunk}, carried state")
+    log(f"condition_scan == plain (bit-exact) at {STREAMS} streams x "
+        f"{chunk}, carried state at clock {chunk}")
+    del got, want
+    ms = _event_ms(lambda: ck.condition_scan_tm(x1, *init, pt), 5)
+    # each input read once (4 B/sample and the 24 B initial state of a
+    # stream), each output written once (24 B/sample); COND_OPS float and
+    # counter operations per sample at the f32 rate
+    n = chunk * STREAMS
+    return {"cond_ms": ms, "cond_plain_ms": plain_ms,
+            "cond_bound": _bound(28 * n + 24 * STREAMS, COND_OPS * n)}
+
+
 def _event_ms(fn, reps):
     import torch
 
@@ -332,8 +502,10 @@ def run_main_path(caps):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    from nfclab_torch.dsp.conditioner_kernel import COND
+
     steps = cc.StepTimes()
-    for k in ff.KERNELS:
+    for k in (*ff.KERNELS, COND):
         k.launches = 0
     t0 = time.perf_counter()
     res = cc.chained_batch_masks(caps, RATE, device="cuda", timings=steps)
@@ -393,6 +565,203 @@ def check_cli(templates):
         raise AssertionError("CLI --frontend mask lines != --frontend host")
     log(f"CLI run --frontend mask == --frontend host ({len(lines['mask'])} "
         "lines)")
+    return out_dir
+
+
+COND_CHANNELS = ("envelope", "filtered", "deviation", "average", "mod_depth")
+
+
+def run_dense_frontend(dev, caps, reps=3):
+    """jitted_frontend(10 MS/s) over [STREAMS, 65536] of the captures on
+    the card: ms per call (host clock, each call ended by a device sync),
+    samples/s, peak memory and conditioning launches per call; then the
+    same call on the CPU over DENSE_CPU_STREAMS of the streams.  The
+    conditioning channels and mod_depth must be bit-exact; the masks equal
+    (their box sums take value prefixes, which accumulate exactly in
+    float64 here); the other float channels within 8 float32 ulps of the
+    row's input sum (a prefix rounded at a float64 tie; Sum|value| / p2
+    for sd_a, which divides its four boxes by the half-symbol width p2,
+    10 * Sum filt^2 for the squared and product boxes)."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import nfca_bitrates
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp.frontend import jitted_frontend
+
+    fn = jitted_frontend(RATE)
+    chunk = 65536
+    x = torch.from_numpy(np.stack([cp[:chunk] for cp in caps])).to(dev)
+    fn(x)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ck.COND.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn(x)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    launches = ck.COND.launches / reps
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = sum(o.numel() * o.element_size() for o in out.values())
+    res = {"ms": dt * 1e3, "samples_per_s": x.numel() / dt,
+           "max_memory_allocated_gib": peak / 2**30,
+           "output_gib": nbytes / 2**30, "cond_launches_per_call": launches,
+           "outputs": len(out)}
+    if launches != 1:
+        raise AssertionError(f"dense frontend launched the conditioning "
+                             f"kernel {launches} times per call")
+
+    k = DENSE_CPU_STREAMS
+    t0 = time.perf_counter()
+    want = jitted_frontend(RATE, device="cpu")(x[:k].cpu())
+    res["cpu_check_s"] = time.perf_counter() - t0
+    if list(want) != list(out):
+        raise AssertionError("dense frontend keys differ between devices")
+    xs = x[:k].cpu().double()
+    s_val = xs.abs().sum(1, keepdim=True)
+    s_sq = (want["filtered"].double() ** 2).sum(1, keepdim=True) * 10.0
+    eps = float(np.finfo(np.float32).eps)
+    p2 = {f"sd_a_{br.rate_type}": br.period2 for br in nfca_bitrates(RATE)}
+    worst = {}
+    for name, w in want.items():
+        g = out[name][:k].cpu()
+        if g.dtype != w.dtype:
+            raise AssertionError(f"dense frontend {name}: dtype {g.dtype} "
+                                 f"!= {w.dtype} on the CPU")
+        if name in COND_CHANNELS or w.dtype == torch.bool:
+            if not _same(g, w):
+                raise AssertionError(f"dense frontend {name} != CPU")
+            continue
+        tol = 8 * eps * (s_val / p2[name] if name in p2 else s_sq)
+        d = (g.double() - w.double()).abs()
+        worst[name] = float(d.max())
+        if bool((d > tol).any()):
+            raise AssertionError(f"dense frontend {name} off the CPU beyond "
+                                 f"tolerance: max err {worst[name]}")
+    res["max_abs_err_tolerance_channels"] = max(worst.values())
+    del out, want
+    return res
+
+
+def long_capture(templates, seed=21):
+    """(samples, expected polls+listens): LONG samples of the templates in
+    turn, each at a seeded gain, then a field-off stretch of 200k-400k
+    samples (noise about zero), long enough that the envelope keeps no
+    memory a halo can recover, so blocks need repairs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = np.empty(LONG, np.float32)
+    pos, i = 0, 0
+    while pos < LONG:
+        tp = templates[i % len(templates)]
+        i += 1
+        seg = tp.samples * np.float32(rng.uniform(0.8, 1.25))
+        off = (np.float32(2e-3) * rng.standard_normal(
+            int(rng.integers(200_000, 400_000)))).astype(np.float32)
+        for part in (seg, off):
+            n = min(len(part), LONG - pos)
+            x[pos : pos + n] = part[:n]
+            pos += n
+    return x
+
+
+def run_conditioner_path(templates, out_dir):
+    """Phase 7: condition_jax on the long capture against the C++ oracle,
+    then the conditioning path through NfcDecoder(conditioner="jax") with
+    the launch counts read around exactly that call; decode_batch and the
+    CLI on the template WAVs."""
+    import numpy as np
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp.conditioner import _edge_tracker, condition_jax
+    from nfclab_torch.native import condition_exact
+    from nfclab_torch.runtime.batch import decode_batch
+    from nfclab_torch.runtime.decoder import NfcDecoder
+
+    x = long_capture(templates)
+    params = SignalParams(RATE)
+    stats = {}
+    t0 = time.perf_counter()
+    cond = condition_jax(x, params, stats=stats)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = condition_exact(x, params)
+    wall_native = time.perf_counter() - t0
+    for name in ("value", "envelope", "filtered", "deviation", "average",
+                 "mod_depth", "edge_peak", "edge_time"):
+        a, b = getattr(cond, name), getattr(ref, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a.view(np.uint32), b.view(np.uint32)):
+            raise AssertionError(f"condition_jax {name} != C++ oracle on the "
+                                 "long capture")
+    if stats["repairs"] < 1:
+        raise AssertionError("the long capture needed no repair")
+    # the host edge tracker's share of condition_jax, timed alone
+    t0 = time.perf_counter()
+    _edge_tracker(cond.filtered, params)
+    wall_tracker = time.perf_counter() - t0
+    res = {"samples": LONG, "blocks": stats["blocks"],
+           "repairs": stats["repairs"], "condition_jax_s": wall,
+           "edge_tracker_s": wall_tracker, "condition_exact_s": wall_native}
+    log(f"condition_jax == C++ oracle (bit-exact, 8 arrays) on {LONG} "
+        f"samples: {json.dumps(res)}")
+
+    # the conditioning path, launch counts read around exactly this call
+    for kern in (*ff.KERNELS, ck.COND):
+        kern.launches = 0
+    t0 = time.perf_counter()
+    frames = NfcDecoder(conditioner="jax").decode(x, RATE)
+    res["decode_jax_s"] = time.perf_counter() - t0
+    launches = ck.COND.launches
+    if launches <= 0:
+        raise AssertionError("condition_scan never ran on the conditioning "
+                             "path")
+    t0 = time.perf_counter()
+    native = NfcDecoder().decode(x, RATE)
+    res["decode_native_s"] = time.perf_counter() - t0
+    if _frames_key(frames) != _frames_key(native):
+        raise AssertionError("NfcDecoder(conditioner='jax') frames != native "
+                             "on the long capture")
+    res["frames"] = len(frames)
+    res["cond_launches"] = launches
+    log(f"conditioning path: NfcDecoder(conditioner='jax') == native "
+        f"({len(frames)} frames, {launches} condition_scan launches)")
+
+    from nfclab_torch.io.wav import write_wav
+
+    paths = []
+    for tp in templates:
+        paths.append(str(out_dir / f"{tp.name}.wav"))
+        write_wav(paths[-1], tp.samples, RATE)
+    want = decode_batch(paths, conditioner="native", pool="thread")
+    for kw in ({"conditioner": "jax"}, {"frontend": "mask"}):
+        got = decode_batch(paths, pool="thread", **kw)
+        for p in paths:
+            if _frames_key(got[p]) != _frames_key(want[p]) or not got[p]:
+                raise AssertionError(f"decode_batch({kw}) {p} != native")
+        log(f"decode_batch({kw}) == native on {len(paths)} template WAVs")
+
+    lines = {}
+    for extra in ((), ("--conditioner", "jax"),
+                  ("--conditioner", "jax", "--frontend", "mask")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "nfclab_torch.apps.decode_cli", "run",
+             "--json", *extra, paths[0]],
+            capture_output=True, text=True, cwd=ROOT, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI {extra} failed:\n{proc.stderr}")
+        lines[extra] = proc.stdout.splitlines()
+    if not lines[()] or any(v != lines[()] for v in lines.values()):
+        raise AssertionError("CLI --conditioner jax lines != native")
+    log(f"CLI run --conditioner jax (with and without --frontend mask) == "
+        f"native ({len(lines[()])} lines)")
+    return res, launches
 
 
 def main(argv=None) -> int:
@@ -435,10 +804,13 @@ def main(argv=None) -> int:
     log(f"native build: {time.perf_counter() - t0:.1f} s")
 
     # 2. kernels vs plain, bit-exact, two rates; C++ oracle
-    errs = {"fused_scan": 0.0, "fused_mask": 0.0}
+    errs = {"fused_scan": 0.0, "fused_mask": 0.0, "condition_scan": 0.0}
     x, outs = check_kernels(dev, RATE, CHECK_CHUNK, 2, errs)
     check_oracle(x, outs, RATE)
     check_kernels(dev, 3_200_000, CHECK_CHUNK, 2, errs)
+    del x, outs
+    for rate in (RATE, 3_200_000):
+        check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
         return 0
@@ -452,6 +824,7 @@ def main(argv=None) -> int:
     log(f"built {len(caps)} captures x {WINDOW} samples in "
         f"{time.perf_counter() - t0:.1f} s")
     tk = check_main_shape(dev, caps, errs)
+    tk.update(check_condition_main_shape(dev, caps, errs))
     log(f"times at {STREAMS} x 65536 (ms): {json.dumps(tk)}")
 
     # 4. the main path at full width
@@ -471,15 +844,28 @@ def main(argv=None) -> int:
 
     # 5. frames
     check_decode(caps, reps, res, tpls)
-    del caps, res
-    check_cli(tpls)
+    del res
+    out_dir = check_cli(tpls)
+
+    # 6. the dense frontend at full width
+    dense = run_dense_frontend(dev, caps)
+    del caps
+    log(f"dense frontend {STREAMS} x 65536 at {RATE} Hz: {json.dumps(dense)}")
+
+    # 7. the device conditioner and its callers
+    cpath, cond_launches = run_conditioner_path(tpls, out_dir)
+    log(f"conditioning path: {json.dumps(cpath)}")
 
     kernels = []
-    for name, key in (("fused_scan", "scan"), ("fused_mask", "mask")):
+    for name, key, src, tpu, n in (
+            ("fused_scan", "scan", SOURCE, TPU_KERNEL, launches["fused_scan"]),
+            ("fused_mask", "mask", SOURCE, TPU_KERNEL, launches["fused_mask"]),
+            ("condition_scan", "cond", COND_SOURCE, COND_TPU_KERNEL,
+             cond_launches)):
         bound, by = tk[f"{key}_bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": TPU_KERNEL, "launches": launches[name],
+            "name": name, "route": "cuda", "source": src,
+            "replaces": tpu, "launches": n,
             "max_abs_err": errs[name], "ms": tk[f"{key}_ms"],
             "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": None,

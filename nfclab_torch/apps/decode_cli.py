@@ -9,7 +9,10 @@
 ``--frontend host`` decodes on the host alone; ``--frontend mask`` takes
 the detect triggers from the fused frontend kernels (dsp.cuda_channels) on
 ``--device`` (cuda by default; cpu runs the kernels' plain versions).
-Multi-channel (ISO7816 logic) captures are not decoded by the port yet.
+``--conditioner jax`` conditions on ``--device`` with the device
+conditioner (dsp.conditioner.condition_jax) instead of the C++ one; it
+combines with either frontend.  Multi-channel (ISO7816 logic) captures are
+not decoded by the port yet.
 """
 
 from __future__ import annotations
@@ -139,17 +142,26 @@ def _decode(path: str, args) -> list[Frame]:
         conditioner=args.conditioner,
         thresholds=_thresholds_from_args(args),
     )
+    cond = chans = None
+    if args.conditioner == "jax":
+        # the device conditioner on --device; the decoder takes its arrays
+        from ..core.params import SignalParams
+        from ..dsp.conditioner import condition_jax
+
+        params = SignalParams(info.sample_rate,
+                              power_level_threshold=args.power_threshold)
+        cond = condition_jax(samples, params, device=args.device)
     if args.frontend == "mask":
         # detect triggers only from the kernels (compacted on the device);
-        # conditioning + box channels build natively on the host
+        # the box channels build natively on the host
         from ..dsp.cuda_channels import fused_capture_masks
 
         chans = fused_capture_masks(
             samples, info.sample_rate, args.power_threshold,
             thresholds=dec.thresholds, device=args.device,
         )
-        return dec.decode(samples, info.sample_rate, tpu_channels=chans)
-    return dec.decode(samples, info.sample_rate)
+    return dec.decode(samples, info.sample_rate, cond=cond,
+                      tpu_channels=chans)
 
 
 def _check_paths(paths) -> str | None:
@@ -222,9 +234,9 @@ def main(argv=None) -> int:
             "correlationThreshold + minimum/maximumModulationDeep)",
         )
         p.add_argument(
-            "--conditioner", choices=("native",), default="native",
-            help="host conditioner (the device conditioner, 'jax' in "
-            "nfclab, is not ported yet)",
+            "--conditioner", choices=("native", "jax"), default="native",
+            help="native = the C++ conditioner on the host; jax = the "
+            "device conditioner (nfclab's name) on --device",
         )
         p.add_argument(
             "--frontend", choices=("host", "mask"), default="host",
@@ -233,8 +245,8 @@ def main(argv=None) -> int:
         )
         p.add_argument(
             "--device", choices=("cuda", "cpu"), default="cuda",
-            help="where --frontend mask runs: cuda (the kernels) or cpu "
-            "(their plain PyTorch versions)",
+            help="where --frontend mask and --conditioner jax run: cuda "
+            "(the kernels) or cpu (their plain PyTorch versions)",
         )
         p.set_defaults(fn=fn)
     args = ap.parse_args(argv)

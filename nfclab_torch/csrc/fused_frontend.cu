@@ -40,12 +40,15 @@
 // Numerics: the contract is bit-exactness with the C++ oracle, which is
 // built with -ffp-contract=off.  Build with -fmad=false -prec-div=true
 // -ftz=false, and every operation of the chain is written as an explicit
-// round-to-nearest intrinsic as well, so no FMA contraction or approximate
-// division can creep in.
+// round-to-nearest intrinsic as well (condition_step.cuh holds the
+// conditioning step), so no FMA contraction or approximate division can
+// creep in.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "condition_step.cuh"
 
 #define FF_MAX_BV 8
 #define FF_MAX_Q 4
@@ -175,20 +178,17 @@ __global__ void ff_scan_kernel(const FFScanArgs a)
 
         // conditioning (NfcTech.cpp:39-68); the silence counter is an
         // integer-valued float, exact far beyond the 10*ETU timeout
-        const float diff = __fdiv_rn(fabsf(__fsub_rn(v, env)), env);
+        const float diff = cond_env_diff(v, env);
         pcount = __fadd_rn(pcount, 1.0f);
         const bool update = (diff < 0.05f) || (pcount > a.silence);
         const bool seed = !update && (t < a.etu);
-        env = update
-            ? __fadd_rn(__fmul_rn(env, a.enve_w0), __fmul_rn(v, a.enve_w1))
-            : (seed ? v : env);
+        env = update ? cond_ema(env, a.enve_w0, v, a.enve_w1)
+                     : (seed ? v : env);
         pcount = update ? 0.0f : pcount;
-        const float w0 = __fadd_rn(v, __fmul_rn(w1, a.iir_a));
-        const float filt = __fsub_rn(w0, w1);
-        w1 = w0;
-        mdev = __fadd_rn(__fmul_rn(mdev, a.mdev_w0),
-                         __fmul_rn(fabsf(filt), a.mdev_w1));
-        avg = __fadd_rn(__fmul_rn(avg, a.mean_w0), __fmul_rn(v, a.mean_w1));
+        float filt;
+        w1 = cond_iir(v, w1, a.iir_a, &filt);
+        mdev = cond_ema(mdev, a.mdev_w0, fabsf(filt), a.mdev_w1);
+        avg = cond_ema(avg, a.mean_w0, v, a.mean_w1);
         d_env[o] = env;
         d_filt[o] = filt;
         if (a.out_mdev) a.out_mdev[o] = mdev;

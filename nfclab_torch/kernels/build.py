@@ -1,5 +1,5 @@
 """Build the port's CUDA kernels with nvcc into a shared library with a
-plain C interface (loaded with ctypes by kernels.fused).
+plain C interface (loaded with ctypes by kernels.fused.library).
 
 The build runs at the first CUDA call, never at import, into
 ``nfclab_torch/kernels/_build/``; it is skipped when the library there was
@@ -18,7 +18,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ["fused_frontend.cu"]
+SOURCES = ["fused_frontend.cu", "conditioner.cu"]
 LIB_NAME = "libnfclab_torch_kernels.so"
 
 # Bit-exactness with the C++ oracle (built -ffp-contract=off) rules out FMA
@@ -51,9 +51,12 @@ def nvcc_path() -> str:
 
 
 def _stamp() -> str:
+    """Hash of the flags and of every file under csrc/ (headers included,
+    so a change to a shared header rebuilds the library)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((SRC_DIR / name).read_bytes())
+    for path in sorted(p for p in SRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(SRC_DIR)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -1,4 +1,6 @@
-"""ctypes binding of the fused frontend kernels (csrc/fused_frontend.cu).
+"""ctypes binding of the fused frontend kernels (csrc/fused_frontend.cu),
+and the loader of the one kernel library that holds every kernel of the
+port (``library``, ``check``).
 
 The structures mirror ``FFScanArgs`` and ``FFMaskArgs`` field for field.
 Pointers come from ``Tensor.data_ptr()``, the stream from PyTorch's
@@ -81,7 +83,10 @@ class FFMaskArgs(ctypes.Structure):
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
+    """Build (if needed) and load the kernel library, with the argument
+    types of every entry point."""
+    from .conditioner import CondScanArgs
+
     lib = ctypes.CDLL(str(build()))
     lib.nfclab_ff_scan.argtypes = [
         ctypes.POINTER(FFScanArgs), ctypes.c_int, ctypes.c_int,
@@ -93,6 +98,11 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.nfclab_ff_mask.restype = ctypes.c_int
+    lib.nfclab_cond_scan.argtypes = [
+        ctypes.POINTER(CondScanArgs), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.nfclab_cond_scan.restype = ctypes.c_int
     lib.nfclab_ff_error_string.argtypes = [ctypes.c_int]
     lib.nfclab_ff_error_string.restype = ctypes.c_char_p
     return lib
@@ -103,7 +113,8 @@ def _fill(arr, values):
         arr[i] = v
 
 
-def _check(lib, code: int, what: str):
+def check(lib, code: int, what: str):
+    """Raise if a launcher returned a CUDA error."""
     if code != 0:
         msg = lib.nfclab_ff_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code}: {msg}")
@@ -158,7 +169,7 @@ def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
             f"per block (limit {SMEM_LIMIT})"
         )
     stream = torch.cuda.current_stream(value_tm.device).cuda_stream
-    _check(lib, lib.nfclab_ff_scan(ctypes.byref(a), value_tm.device.index,
+    check(lib, lib.nfclab_ff_scan(ctypes.byref(a), value_tm.device.index,
                                    SCAN_THREADS, smem, stream), "ff_scan")
 
 
@@ -201,5 +212,5 @@ def launch_mask(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
     a.rows_main = T if (out_mask is not None or out_md is not None) else 0
     a.hist_rows = sum(hlen)
     stream = torch.cuda.current_stream(deps.device).cuda_stream
-    _check(lib, lib.nfclab_ff_mask(ctypes.byref(a), deps.device.index,
+    check(lib, lib.nfclab_ff_mask(ctypes.byref(a), deps.device.index,
                                    MASK_THREADS, stream), "ff_mask")

@@ -8,9 +8,11 @@ environment).
 
 from __future__ import annotations
 
+import fcntl
 import os
 import subprocess
 import sysconfig
+import tempfile
 from pathlib import Path
 
 _SRC_DIR = Path(__file__).parent / "src"
@@ -63,21 +65,43 @@ def _stamp() -> str:
 
 def build(force: bool = False) -> Path:
     """Compile the native library if missing or out of date (source mtimes,
-    compiler flags, or build host changed). Returns its path."""
+    compiler flags, or build host changed). Returns its path.
+
+    Safe across processes: one process compiles, under an exclusive lock
+    on ``_build/build.lock``, into a temporary file that replaces the
+    library in one rename; the others wait on the lock and find it
+    current, and no process ever maps a half-written library."""
     out = lib_path()
     srcs = [_SRC_DIR / s for s in SOURCES]
     stamp_file = _BUILD_DIR / "flags.stamp"
     stamp = _stamp()
-    if not force and out.exists():
+
+    def current() -> bool:
+        if not out.exists():
+            return False
         deps = srcs + [_SRC_DIR / h for h in HEADERS]
         newest_src = max(s.stat().st_mtime for s in deps)
         stamp_ok = stamp_file.exists() and stamp_file.read_text() == stamp
-        if out.stat().st_mtime >= newest_src and stamp_ok:
-            return out
+        return out.stat().st_mtime >= newest_src and stamp_ok
+
+    if not force and current():
+        return out
     _BUILD_DIR.mkdir(exist_ok=True)
-    cmd = ["g++", *CXXFLAGS, "-o", str(out), *[str(s) for s in srcs], "-ldl"]
-    subprocess.run(cmd, check=True, capture_output=True)
-    stamp_file.write_text(stamp)
+    with open(_BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and current():  # built by another process meanwhile
+            return out
+        fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, suffix=".so")
+        os.close(fd)
+        try:
+            cmd = ["g++", *CXXFLAGS, "-o", tmp, *[str(s) for s in srcs],
+                   "-ldl"]
+            subprocess.run(cmd, check=True, capture_output=True)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        stamp_file.write_text(stamp)
     return out
 
 

@@ -232,11 +232,9 @@ class NfcDecoder:
 
             return condition_exact(samples, params)
         if self.conditioner == "jax":
-            raise ValueError(
-                "conditioner='jax' selects the device conditioner, which "
-                "nfclab_torch does not implement yet; use "
-                "conditioner='native'"
-            )
+            from ..dsp.conditioner import condition_jax
+
+            return condition_jax(samples, params)
         raise ValueError(f"unknown conditioner {self.conditioner!r}")
 
     def _make_techs(self, ctx: DecoderContext) -> list:

@@ -34,18 +34,28 @@ def wav(tmp_path_factory):
     return path
 
 
-def _cli(module, *args):
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+@pytest.fixture(scope="module")
+def ref_env(tmp_path_factory):
+    """Environment for nfclab's CLI: its native library is a copy of the
+    port's (see torch_native.py)."""
+    from torch_native import ref_native_lib
+
+    return {"NFCLAB_NATIVE_LIB": ref_native_lib(
+        tmp_path_factory.mktemp("native"))}
+
+
+def _cli(module, *args, env=None):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **(env or {}))
     return subprocess.run(
         [sys.executable, "-m", module, *map(str, args)],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=600,
     )
 
 
-def test_run_mask_prints_nfclab_lines(wav):
+def test_run_mask_prints_nfclab_lines(wav, ref_env):
     port = _cli("nfclab_torch.apps.decode_cli", "run", "--json", "--device",
                 "cpu", "--frontend", "mask", wav)
-    ref = _cli("nfclab.apps.decode_cli", "run", "--json", wav)
+    ref = _cli("nfclab.apps.decode_cli", "run", "--json", wav, env=ref_env)
     assert port.returncode == 0, port.stderr
     assert ref.returncode == 0, ref.stderr
     lines = port.stdout.splitlines()
@@ -53,12 +63,12 @@ def test_run_mask_prints_nfclab_lines(wav):
     assert lines == ref.stdout.splitlines()
 
 
-def test_test_mask_passes_nfclab_golden(wav, tmp_path):
+def test_test_mask_passes_nfclab_golden(wav, tmp_path, ref_env):
     """nfclab writes the golden (TEST UPDATED); the port's mask frontend
     decodes the same capture to it (PASS)."""
     local = tmp_path / wav.name
     local.write_bytes(wav.read_bytes())
-    first = _cli("nfclab.apps.decode_cli", "test", local)
+    first = _cli("nfclab.apps.decode_cli", "test", local, env=ref_env)
     assert "TEST UPDATED" in first.stdout, first.stderr
     port = _cli("nfclab_torch.apps.decode_cli", "test", "--device", "cpu",
                 "--frontend", "mask", local)

@@ -4,8 +4,8 @@ machine without one).  Run them on the GPU machine with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Each kernel must equal its plain PyTorch version bit for bit on the same
-CUDA inputs, and the main path on CUDA must give the triggers of the CPU
-path."""
+CUDA inputs, the mask path on CUDA must give the triggers of the CPU path,
+and the device conditioner on CUDA must equal the C++ oracle."""
 
 import numpy as np
 import pytest
@@ -73,3 +73,63 @@ def test_chained_masks_cuda_equal_cpu(cuda, monkeypatch):
         assert g["n"] == w["n"]
         assert np.array_equal(g["detect_idx"], w["detect_idx"])
         assert np.array_equal(g["detect_bits"], w["detect_bits"])
+
+
+def test_condition_kernel_equals_plain_on_card(cuda):
+    """cond_scan_kernel against condition_scan_plain: 300 streams (not a
+    multiple of the 32-thread block) from a seeded state with non-zero
+    clocks and pulse counts, two chained calls against one."""
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+
+    pt, _ = _params()
+    etu = SignalParams(RATE).elementary_time_unit
+    x = torch.from_numpy(mixed_lanes(300, 1000, seed=3)).to(cuda)
+    rng = np.random.default_rng(4)
+    init = (x[:, 0] * 1.05, x[:, 0] * 10.0,
+            torch.full((300,), 1e-4, device=cuda), x[:, 0].clone(),
+            torch.from_numpy(rng.integers(0, 20 * etu, 300).astype(
+                np.int32)).to(cuda),
+            torch.from_numpy(rng.integers(0, 3 * etu, 300).astype(
+                np.int32)).to(cuda))
+    before = ck.COND.launches
+    whole = ck.condition_scan(x, *init, pt)
+    want = ck.condition_scan_plain(x, *init, pt)
+    assert ck.COND.launches == before + 1
+    for a, b in zip(whole, want):
+        assert _same(a, b)
+    first = ck.condition_scan(x[:, :613], *init, pt)
+    env, w1, mdev, avg, _, pulse = (o[:, -1].contiguous() for o in first)
+    second = ck.condition_scan(x[:, 613:], env, w1, mdev, avg, pulse,
+                               init[5] + 613, pt)
+    for a, b, c in zip(whole, first, second):
+        assert _same(a, torch.cat([b, c], 1))
+
+
+def test_condition_jax_and_frontend_on_card(cuda):
+    """condition_jax on the card equals the C++ oracle; the dense
+    frontend's conditioning channels and masks equal its CPU run."""
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp.conditioner import condition_jax
+    from nfclab_torch.dsp.frontend import jitted_frontend
+    from nfclab_torch.native import condition_exact
+
+    tp = templates()
+    x = np.concatenate([tp[0].samples, np.zeros(150_000, np.float32),
+                        tp[2].samples])
+    stats = {}
+    got = condition_jax(x, SignalParams(RATE), block=32768, halo=8192,
+                        device="cuda", stats=stats)
+    want = condition_exact(x, SignalParams(RATE))
+    for name in ("envelope", "filtered", "deviation", "average",
+                 "mod_depth", "edge_peak", "edge_time"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), name
+    assert stats["repairs"] >= 1
+    xs = torch.from_numpy(mixed_lanes(16, 4096, seed=8))
+    dev_out = jitted_frontend(RATE)(xs)
+    cpu_out = jitted_frontend(RATE, device="cpu")(xs)
+    for k, v in cpu_out.items():
+        if k in ("envelope", "filtered", "deviation", "average",
+                 "mod_depth") or v.dtype == torch.bool:
+            assert _same(dev_out[k].cpu(), v), k

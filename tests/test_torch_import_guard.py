@@ -49,7 +49,13 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.kernels.fused",
                  "nfclab_torch.apps.decode_cli",
                  "nfclab_torch.runtime.decoder",
-                 "nfclab_torch.native.binding"):
+                 "nfclab_torch.native.binding",
+                 "nfclab_torch.dsp.conditioner_kernel",
+                 "nfclab_torch.dsp.conditioner",
+                 "nfclab_torch.dsp.frontend",
+                 "nfclab_torch.kernels.conditioner",
+                 "nfclab_torch.runtime.batch",
+                 "nfclab_torch.apps.bench_cli"):
         assert need in mods
 
 

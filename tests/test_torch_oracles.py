@@ -66,10 +66,15 @@ def _oracle_lanes(n=4096):
 
 
 @pytest.mark.parametrize("oracle", ["nfclab_torch", "nfclab"])
-def test_conditioning_bit_exact_with_cpp_oracle(oracle):
+def test_conditioning_bit_exact_with_cpp_oracle(oracle, tmp_path):
     if not _native_ok():
         pytest.skip("native library unavailable")
     import importlib
+
+    if oracle == "nfclab":
+        from torch_native import use_ref_native
+
+        use_ref_native(tmp_path)
 
     from nfclab_torch.core.params import SignalParams
 

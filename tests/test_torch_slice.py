@@ -51,6 +51,15 @@ def triggers(engine_run):
     return engine_run[0]
 
 
+@pytest.fixture(scope="module")
+def ref_native(tmp_path_factory):
+    """nfclab's decoder runs on a copy of the port's native library (see
+    torch_native.py)."""
+    from torch_native import use_ref_native
+
+    use_ref_native(tmp_path_factory.mktemp("native"))
+
+
 def test_slice_step_times_cover_the_engine(engine_run):
     """StepTimes names every step of the engine once and its steps add up
     to no more than the call's wall time."""
@@ -66,7 +75,7 @@ def _json_lines(frames, mod):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_slice_frames(triggers, name):
+def test_slice_frames(triggers, ref_native, name):
     import nfclab.apps.decode_cli as ref_cli
     import nfclab.runtime.decoder as ref
     import nfclab_torch.apps.decode_cli as port_cli
