@@ -17,7 +17,11 @@ Phases (any failure raises and the script exits non-zero):
    conditioning kernel from a seeded initial state with non-zero clocks and
    pulse counts; every output and the state must be bit-exact.
    Conditioning must be bit-exact against the C++ oracle on 8 streams, for
-   both kernels.  Repeated at 3.2 MS/s.
+   both kernels.  Repeated at 3.2 MS/s.  Then the experiments/ kernels,
+   bit-exact against their plain versions: the conditioning probes at one
+   group x 4096 samples x 2048 lanes (pair equal to serial), the copy
+   probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks of 4096
+   with carried state.
 3. The kernels against their plain versions at the main paths' shape and
    on their inputs: two [65536, 1024] chunks of the mask path's captures,
    the second with carried state at a folded clock base, and one 1024 x
@@ -38,12 +42,22 @@ Phases (any failure raises and the script exits non-zero):
 7. The device conditioner on a long capture: condition_jax over 2**25
    samples of the templates with long field-off stretches, bit-exact
    against the C++ oracle with its repair count and the time of its host
-   edge tracker alone; then the conditioning
+   edge tracker (from its stats); then the conditioning
    path -- NfcDecoder(conditioner="jax") over that capture, launch counts
    read around exactly that call -- gives the native frames;
    decode_batch(conditioner="jax") and the CLI with --conditioner jax give
    the native frames of the template WAVs.
-
+8. The experiments/ counterparts at the originals' full widths, each
+   through its entry point with launch counts read around that call: the
+   copy probe (8192 x 8192, 24 sweeps, 14 outputs; GB/s, which must stay
+   under 105% of 3.35 TB/s, beside 24 broadcast torch.mul calls); the
+   conditioning probes (65536 samples, 8 chained calls; serial on 2048
+   lanes, pair and serial on 16384; ns/step and GS/s); bench_v2's v2 and
+   prod runs (ms, GS/s, peak memory); the serial probe and the
+   conditioning kernel each on the probe's noise and on template lanes
+   (2048 x 65536); then each probe kernel against its
+   plain version at its shape (pair equal to serial at 16384 lanes) and
+   fused_v2's kernels on two 4096 x 16384 chunks with carried state.
 The line before the last is the card's name and power limit; the one
 before it a JSON object with one entry per kernel.  The last line is
 {"ok": true, "device": {...}}.  --kernels-only stops after phase 2, for
@@ -73,6 +87,16 @@ COND_SOURCE = "nfclab_torch/csrc/conditioner.cu"
 COND_OPS = 22             # float and counter operations per sample
 LONG = 1 << 25            # the long capture of phase 7 (3.36 s, 512 blocks)
 DENSE_CPU_STREAMS = 64    # streams of phase 6's CPU comparison
+V2_SOURCE = "nfclab_torch/csrc/fused_v2.cu"
+PROBE_SOURCE = "nfclab_torch/csrc/probes.cu"
+V2_TPU_KERNEL = "experiments/fused_v2.py:108"
+SERIAL_TPU_KERNEL = "experiments/probe_serial_floor.py:39"
+PAIR_TPU_KERNEL = "experiments/probe_pair_spec.py:44"
+COPY_TPU_KERNEL = "experiments/membw_probe.py:30"
+PROBE_OPS = 25            # float operations per sample of the probes
+V2_SCAN_OPS = 50          # per sample: conditioning, mod_depth, 9 boxes
+V2_MASK_OPS = 47          # per sample: 5 SD cascades, 2 edges, V, gate
+V2_STREAMS, V2_CHUNK = 4096, 16384   # bench_v2's first v2 configuration
 
 
 def log(*a):
@@ -108,6 +132,15 @@ def _err(a, b) -> float:
     d = torch.where(both_nan, torch.zeros_like(d), d)
     d = torch.nan_to_num(d, nan=float("inf"))
     return float(d.max()) if d.numel() else 0.0
+
+
+def _hold(errs, name, got, want, what):
+    """Record the largest error of `name` and raise unless got equals
+    want bit for bit."""
+    e = _err(got.float(), want.float())
+    errs[name] = max(errs[name], e)
+    if not _same(got, want):
+        raise AssertionError(f"{name} != plain, {what}: max err {e}")
 
 
 def _params(rate):
@@ -678,7 +711,7 @@ def run_conditioner_path(templates, out_dir):
     from nfclab_torch.core.params import SignalParams
     from nfclab_torch.dsp import conditioner_kernel as ck
     from nfclab_torch.dsp import fused_frontend as ff
-    from nfclab_torch.dsp.conditioner import _edge_tracker, condition_jax
+    from nfclab_torch.dsp.conditioner import condition_jax
     from nfclab_torch.native import condition_exact
     from nfclab_torch.runtime.batch import decode_batch
     from nfclab_torch.runtime.decoder import NfcDecoder
@@ -701,13 +734,11 @@ def run_conditioner_path(templates, out_dir):
                                  "long capture")
     if stats["repairs"] < 1:
         raise AssertionError("the long capture needed no repair")
-    # the host edge tracker's share of condition_jax, timed alone
-    t0 = time.perf_counter()
-    _edge_tracker(cond.filtered, params)
-    wall_tracker = time.perf_counter() - t0
+    # edge_tracker_s: the host edge tracker's share of condition_jax
     res = {"samples": LONG, "blocks": stats["blocks"],
            "repairs": stats["repairs"], "condition_jax_s": wall,
-           "edge_tracker_s": wall_tracker, "condition_exact_s": wall_native}
+           "edge_tracker_s": stats["edge_tracker_s"],
+           "condition_exact_s": wall_native}
     log(f"condition_jax == C++ oracle (bit-exact, 8 arrays) on {LONG} "
         f"samples: {json.dumps(res)}")
 
@@ -764,6 +795,289 @@ def run_conditioner_path(templates, out_dir):
     return res, launches
 
 
+def check_v2(dev, streams, chunk, errs, seed, timed=False):
+    """fused_v2's kernels against their plain versions over two chunks of
+    mixed lanes with carried state (clocks from 40): the two-kernel chain
+    against the plain chain, and the mask kernel alone on the plain scan's
+    outputs.  With `timed`, the kernels' times on chunk 1's inputs (CUDA
+    events) and the plain versions' times from its comparison run."""
+    import torch
+
+    from nfclab_torch.experiments import fused_v2 as v2
+    from torch_synth import mixed_lanes
+
+    pt, mp, _ = _params(RATE)
+    x = torch.from_numpy(mixed_lanes(streams, 2 * chunk, seed=seed)).to(dev)
+    mrows = v2.mask_state_rows().to(dev)
+    mk = v2.OUTPUT_NAMES.index("detect_mask")
+    st_k = torch.zeros(v2.NSTATE, streams, device=dev)
+    st_p = st_k.clone()
+    t = {}
+    for c in range(2):
+        base = 40 + c * chunk
+        x_tm = x[:, c * chunk : (c + 1) * chunk].t().contiguous()
+        out_k, so_k = v2.run_chunk(x_tm, st_k, base, pt, mp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, so_p = v2._scan_plain(x_tm, st_p, base, pt)
+        torch.cuda.synchronize()
+        t["scan_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        out_m, so_m = out_p.clone(), so_p.clone()
+        v2.v2_mask(out_m, st_p, so_m, base, mp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v2._mask_plain(out_p, st_p, so_p, base, mp)
+        torch.cuda.synchronize()
+        t["mask_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        what = f"{streams} x {chunk}, chunk {c}, base {base}"
+        _hold(errs, "fused_v2_scan", out_k[:mk], out_p[:mk], what)
+        _hold(errs, "fused_v2_scan", so_k[~mrows], so_p[~mrows], what)
+        for o, s in ((out_m, so_m), (out_k, so_k)):
+            _hold(errs, "fused_v2_mask", o[mk], out_p[mk], what)
+            _hold(errs, "fused_v2_mask", s[mrows], so_p[mrows], what)
+        if c == 0:
+            st_k, st_p = so_k, so_p
+            del out_m, so_m
+    log(f"fused_v2 kernels == plain (bit-exact) at {streams} streams x 2 x "
+        f"{chunk}, carried state")
+    if not timed:
+        return t
+    out_t, so_t = out_k.clone(), so_k.clone()
+    t["scan_ms"] = _event_ms(lambda: v2.v2_scan(x_tm, st_k, base, pt), 3)
+    t["mask_ms"] = _event_ms(
+        lambda: v2.v2_mask(out_t, st_k, so_t, base, mp), 5)
+    # each input read once and each output written once: the scan reads
+    # the samples and its state rows and writes 14 channels and its rows;
+    # the mask writes detect_mask and its rows (its inputs are the scan's
+    # outputs)
+    n = chunk * streams
+    row_b = streams * 4
+    n_mrows = int(mrows.sum())
+    t["scan_bound"] = _bound(60 * n + 2 * (v2.NSTATE - n_mrows) * row_b,
+                             V2_SCAN_OPS * n)
+    t["mask_bound"] = _bound(4 * n + 2 * n_mrows * row_b, V2_MASK_OPS * n)
+    return t
+
+
+def check_experiment_kernels(dev, errs):
+    """Phase 2 for the experiments/ counterparts: the probes at one group
+    x CHECK_CHUNK samples x 2048 lanes (field-off stretches past the
+    silence timeout on every 8th lane, a zero first sample on lane 0), pair
+    equal to serial; the copy probe at 1024 x 1024 x 3 outputs, 2 sweeps;
+    fused_v2 at STREAMS x 2 chunks of CHECK_CHUNK, then its public
+    function against fused_frontend_plain."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.experiments import membw_probe as mb
+    from nfclab_torch.experiments import probe_pair_spec as pps
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from torch_synth import mixed_lanes
+
+    x = psf.probe_input(1, CHECK_CHUNK, psf.SUB, dev)
+    x[:, 1000:3000, ::8] = 0.0
+    x[0, 0, 0] = 0.0
+    serial = psf.serial_probe(x)
+    pair = pps.pair_probe(x)
+    what = f"1 x {CHECK_CHUNK} x {x.shape[2]}"
+    for a, b in zip(serial, psf.serial_probe_plain(x)):
+        _hold(errs, "serial_probe", a, b, what)
+    for a, b in zip(pair, pps.pair_probe_plain(x)):
+        _hold(errs, "pair_probe", a, b, what)
+    for a, b in zip(pair, serial):
+        if not _same(a, b):
+            raise AssertionError(f"pair_probe != serial_probe, {what}")
+    log(f"serial_probe, pair_probe == plain and pair == serial (bit-exact) "
+        f"at {what}")
+
+    xc = torch.from_numpy(np.random.default_rng(1).random(
+        (1024, 1024), dtype=np.float32)).to(dev)
+    for a, b in zip(mb.copy_probe(xc, 3, 2), mb.copy_probe_plain(xc, 3, 2)):
+        _hold(errs, "copy_probe", a, b, "1024 x 1024 x 3, 2 sweeps")
+    log("copy_probe == plain (bit-exact) at 1024 x 1024 x 3 outputs")
+
+    check_v2(dev, STREAMS, CHECK_CHUNK, errs, seed=31)
+    pt, mp, _ = _params(RATE)
+    xv = mixed_lanes(STREAMS, 2 * CHECK_CHUNK, seed=32)
+    st = stp = None
+    for c in range(2):
+        xc = torch.from_numpy(xv[:, c * CHECK_CHUNK : (c + 1) * CHECK_CHUNK])
+        got, st = v2.fused_frontend(xc, pt, mask_params=mp, state=st,
+                                    base=c * CHECK_CHUNK, return_state=True,
+                                    device=dev)
+        want, stp = v2.fused_frontend_plain(
+            xc.to(dev), pt, mask_params=mp, state=stp, base=c * CHECK_CHUNK,
+            return_state=True)
+        for n in v2.OUTPUT_NAMES:
+            if not _same(got[n], want[n]):
+                raise AssertionError(f"fused_v2.fused_frontend {n} != plain")
+        if not _same(st, stp):
+            raise AssertionError("fused_v2.fused_frontend state != plain")
+    torch.cuda.synchronize()
+    log(f"fused_v2.fused_frontend == fused_frontend_plain (bit-exact) at "
+        f"{STREAMS} x 2 x {CHECK_CHUNK} from a fresh stream")
+
+
+def _counted(kernels, fn):
+    """fn() with the launch counts of `kernels` set to 0 just before and
+    read just after; raises if one of them never ran."""
+    for k in kernels:
+        k.launches = 0
+    res = fn()
+    counts = {k.name: k.launches for k in kernels}
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never ran on its path")
+    return res, counts
+
+
+def probe_vs_condition(dev, tpls):
+    """ms of serial_probe_kernel and cond_scan_kernel (from a zero state
+    at clock 0) on two inputs of 2048 lanes x 65536 samples: the probe's
+    own (uniform noise, where the envelope rarely updates) and lanes of
+    the templates (carrier, where it nearly always does)."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from torch_synth import lane
+
+    lanes = psf.SUB * 128
+    noise = psf.probe_input(1, psf.T_PROBE, psf.SUB, dev)[0]
+    caps = np.stack([lane(tpls[i % len(tpls)], psf.T_PROBE, seed=2000 + i)[0]
+                     for i in range(lanes)], 1)
+    z = torch.zeros(lanes, device=dev)
+    zi = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    pt = psf.params()
+    res = {}
+    for what, x_tm in (("noise", noise), ("captures",
+                                          torch.from_numpy(caps).to(dev))):
+        res[f"serial_probe_{what}_ms"] = _event_ms(
+            lambda: psf.serial_probe(x_tm[None]), 3)
+        res[f"condition_scan_{what}_ms"] = _event_ms(
+            lambda: ck.condition_scan_tm(x_tm, z, z, z, z, zi, zi, pt), 3)
+    return res
+
+
+def run_experiments(dev, errs, tpls):
+    """Phase 8: the experiments/ counterparts at the originals' full
+    widths, each through its entry point with its launch counts read
+    around exactly that call; then each kernel timed against its plain
+    version at that shape.  Returns (per-kernel times, launch counts)."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.experiments import bench_v2
+    from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.experiments import membw_probe as mb
+    from nfclab_torch.experiments import probe_pair_spec as pps
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from nfclab_torch.experiments.common import best_time
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kt, launches = {}, {}
+
+    # the copy probe: the original's measurement, then one sweep of
+    # 8192 x 8192 x NOUT against the plain version and one broadcast
+    # torch.mul
+    r, n = _counted([mb.COPY], lambda: mb.bandwidth(device=dev))
+    launches.update(n)
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (mb.ROWS, mb.COLS), dtype=np.float32)).to(dev)
+    sc = torch.tensor(mb.scales(mb.NOUT), device=dev).view(mb.NOUT, 1, 1)
+    lib_out = torch.empty(mb.NOUT, mb.ROWS, mb.COLS, device=dev)
+
+    def library_sweeps():
+        for _ in range(mb.SWEEPS):
+            torch.mul(x, sc, out=lib_out)
+        return float(lib_out[:, -1, -1].sum())
+
+    lib_best = best_time(library_sweeps, 4)
+    r["library_gb_per_s"] = r["traffic_bytes"] / lib_best / 1e9
+    peak = H100_BYTES_PER_S / 1e9
+    if r["gb_per_s"] > 1.05 * peak:
+        raise AssertionError(
+            f"copy probe read {r['gb_per_s']:.0f} GB/s, over 105% of "
+            f"{peak:.0f}: stores were dropped")
+    got = mb.copy_probe(x, mb.NOUT, 1)
+    for a, b in zip(got, mb.copy_probe_plain(x, mb.NOUT, 1)):
+        _hold(errs, "copy_probe", a, b, "8192 x 8192 x 14")
+    del got
+    nbytes = x.numel() * 4 * (1 + mb.NOUT)
+    kt["copy_probe"] = {
+        "ms": _event_ms(lambda: mb.copy_probe(x, mb.NOUT, 1), 5),
+        "plain_ms": _event_ms(lambda: mb.copy_probe_plain(x, mb.NOUT, 1), 3),
+        "library_ms": _event_ms(lambda: torch.mul(x, sc, out=lib_out), 5),
+        "bound": _bound(nbytes, mb.NOUT * x.numel())}
+    log(f"copy probe: {json.dumps(r)}")
+    del x, lib_out
+    torch.cuda.empty_cache()
+
+    # the conditioning probes: each main's measurement, then one call at
+    # its shape against the plain version
+    serial, n = _counted([psf.SERIAL], lambda: psf.measure(device=dev))
+    launches.update(n)
+    pair, n = _counted([pps.PAIR], lambda: pps.measure("pair", device=dev))
+    launches.update(n)
+    log(f"conditioning probes: serial {json.dumps(serial)}, pair "
+        f"{json.dumps(pair)}, serial at pair's shape "
+        f"{json.dumps(pps.measure('serial', device=dev))}")
+    for name, g, probe, plain in (
+            ("serial_probe", 1, psf.serial_probe, psf.serial_probe_plain),
+            ("pair_probe", 8, pps.pair_probe, pps.pair_probe_plain)):
+        xp = psf.probe_input(g, psf.T_PROBE, psf.SUB, dev)
+        ms = _event_ms(lambda: probe(xp), 3)
+        got = probe(xp)
+        if name == "pair_probe":
+            for a, b in zip(got, psf.serial_probe(xp)):
+                if not _same(a, b):
+                    raise AssertionError("pair_probe != serial_probe at "
+                                         f"{tuple(xp.shape)}")
+            log(f"pair_probe == serial_probe (bit-exact) at "
+                f"{xp.shape[2] * g} lanes x {psf.T_PROBE}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(xp)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for a, b in zip(got, want):
+            _hold(errs, name, a, b, f"{tuple(xp.shape)}")
+        n = xp.numel()
+        kt[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound": _bound(24 * n, PROBE_OPS * n)}
+        del xp, got, want
+        torch.cuda.empty_cache()
+
+    # bench_v2: v2 and prod, launch counts and peak memory around each
+    for which, kernels in (("v2", v2.KERNELS), ("prod", ff.KERNELS)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows, n = _counted(kernels, lambda: bench_v2.run(which, device=dev))
+        if which == "v2":
+            launches.update(n)
+        peak = torch.cuda.max_memory_allocated()
+        for row in rows:
+            row["max_memory_allocated_gib"] = peak / 2**30
+            row["launches"] = n
+        log(f"bench_v2 {which}: {json.dumps(rows)}")
+    log(f"serial_probe and condition_scan at 2048 lanes x {psf.T_PROBE} "
+        f"(ms): {json.dumps(probe_vs_condition(dev, tpls))}")
+
+    # fused_v2 against its plain version on two full-width chunks
+    torch.cuda.empty_cache()
+    t = check_v2(dev, V2_STREAMS, V2_CHUNK, errs, seed=33, timed=True)
+    for key in ("scan", "mask"):
+        kt[f"fused_v2_{key}"] = {
+            "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
+            "library_ms": None, "bound": t[f"{key}_bound"]}
+    torch.cuda.empty_cache()
+    return kt, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -804,13 +1118,16 @@ def main(argv=None) -> int:
     log(f"native build: {time.perf_counter() - t0:.1f} s")
 
     # 2. kernels vs plain, bit-exact, two rates; C++ oracle
-    errs = {"fused_scan": 0.0, "fused_mask": 0.0, "condition_scan": 0.0}
+    errs = {name: 0.0 for name in (
+        "fused_scan", "fused_mask", "condition_scan", "fused_v2_scan",
+        "fused_v2_mask", "serial_probe", "pair_probe", "copy_probe")}
     x, outs = check_kernels(dev, RATE, CHECK_CHUNK, 2, errs)
     check_oracle(x, outs, RATE)
     check_kernels(dev, 3_200_000, CHECK_CHUNK, 2, errs)
     del x, outs
     for rate in (RATE, 3_200_000):
         check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
+    check_experiment_kernels(dev, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
         return 0
@@ -856,6 +1173,11 @@ def main(argv=None) -> int:
     cpath, cond_launches = run_conditioner_path(tpls, out_dir)
     log(f"conditioning path: {json.dumps(cpath)}")
 
+    # 8. the experiments/ counterparts at full width
+    t0 = time.perf_counter()
+    ekt, elaunch = run_experiments(dev, errs, tpls)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, key, src, tpu, n in (
             ("fused_scan", "scan", SOURCE, TPU_KERNEL, launches["fused_scan"]),
@@ -869,6 +1191,20 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": tk[f"{key}_ms"],
             "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": None,
+        })
+    for name, src, tpu in (
+            ("fused_v2_scan", V2_SOURCE, V2_TPU_KERNEL),
+            ("fused_v2_mask", V2_SOURCE, V2_TPU_KERNEL),
+            ("serial_probe", PROBE_SOURCE, SERIAL_TPU_KERNEL),
+            ("pair_probe", PROBE_SOURCE, PAIR_TPU_KERNEL),
+            ("copy_probe", PROBE_SOURCE, COPY_TPU_KERNEL)):
+        k = ekt[name]
+        bound, by = k["bound"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": elaunch[name], "max_abs_err": errs[name],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": k["library_ms"],
         })
     log(json.dumps({"kernels": kernels}))
     log(card_line())

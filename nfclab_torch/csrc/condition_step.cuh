@@ -1,6 +1,8 @@
 // The float arithmetic of one step of the NFC conditioning chain
-// (NfcTech.cpp:39-68), shared by ff_scan_kernel (fused_frontend.cu) and
-// cond_scan_kernel (conditioner.cu).
+// (NfcTech.cpp:39-68) and of mod_depth (NfcTech.cpp:71-74), shared by
+// ff_scan_kernel and ff_mask_kernel (fused_frontend.cu), cond_scan_kernel
+// (conditioner.cu), v2_scan_kernel (fused_v2.cu) and the conditioning
+// probes (probes.cu).
 //
 // The contract is bit-exactness with the C++ oracle, which is built with
 // -ffp-contract=off: every operation is an explicit round-to-nearest
@@ -35,4 +37,14 @@ __device__ __forceinline__ float cond_iir(float v, float w1, float a,
     const float w0 = __fadd_rn(v, __fmul_rn(w1, a));
     *filt = __fsub_rn(w0, w1);
     return w0;
+}
+
+// (env - max(0, min(v, env))) / env, with NaN-propagating min and max
+// (jnp.minimum / jnp.maximum and torch.minimum / clamp semantics)
+__device__ __forceinline__ float cond_mod_depth(float v, float env)
+{
+    float c = (isnan(v) || isnan(env)) ? __int_as_float(0x7fc00000)
+                                       : fminf(v, env);
+    c = isnan(c) ? c : fmaxf(c, 0.0f);
+    return __fdiv_rn(__fsub_rn(env, c), env);
 }

@@ -272,17 +272,6 @@ __device__ __forceinline__ float ff_lagged(const float *deps,
     return state_in[(int64_t)(hoff + hlen + i) * B + b];
 }
 
-// NaN-propagating min/max (torch.minimum, clamp and jnp semantics)
-__device__ __forceinline__ float ff_min(float x, float y)
-{
-    return (isnan(x) || isnan(y)) ? __int_as_float(0x7fc00000) : fminf(x, y);
-}
-
-__device__ __forceinline__ float ff_clamp0(float x)
-{
-    return isnan(x) ? x : fmaxf(x, 0.0f);
-}
-
 __global__ void ff_mask_kernel(const FFMaskArgs a)
 {
     const int64_t B = a.B;
@@ -320,10 +309,7 @@ __global__ void ff_mask_kernel(const FFMaskArgs a)
     const float *deps = a.deps;
     const float *st_in = a.state_in;
     const float env = a.deps[((int64_t)(a.n_bv + 1) * a.T) * B + o];
-    if (a.out_mod_depth) {
-        const float c = ff_clamp0(ff_min(a.value[o], env));
-        a.out_mod_depth[o] = __fdiv_rn(__fsub_rn(env, c), env);
-    }
+    if (a.out_mod_depth) a.out_mod_depth[o] = cond_mod_depth(a.value[o], env);
     if (!a.out_mask) return;
 
     const bool power_ok = env >= a.power_thr;

@@ -24,6 +24,8 @@ the result is bit-identical to the sequential C++ oracle.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -50,8 +52,9 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     that name.  nfclab bucketed the block count to a power of two only to
     reuse jitted programs; here the block count is what the capture needs.
 
-    ``stats``, when given, receives ``blocks`` (the streams of pass 1) and
-    ``repairs`` (the blocks scanned again)."""
+    ``stats``, when given, receives ``blocks`` (the streams of pass 1),
+    ``repairs`` (the blocks scanned again) and ``edge_tracker_s`` (host
+    seconds of the edge tracker)."""
     if block < 1 or halo < 1:
         raise ValueError("block and halo must be at least 1")
     dev = resolve_device(device)
@@ -127,7 +130,10 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
         clamped = np.maximum(np.float32(0.0), np.minimum(value, env))
         mdepth = (env - clamped) / env
 
+    t0 = time.perf_counter()
     epeak, etime = _edge_tracker(filt, params)
+    if stats is not None:
+        stats["edge_tracker_s"] = time.perf_counter() - t0
     return Conditioned(value, env, filt, mdev, avg, mdepth, epeak, etime)
 
 

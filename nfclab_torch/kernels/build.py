@@ -18,7 +18,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ["fused_frontend.cu", "conditioner.cu"]
+SOURCES = ["fused_frontend.cu", "conditioner.cu", "fused_v2.cu", "probes.cu"]
 LIB_NAME = "libnfclab_torch_kernels.so"
 
 # Bit-exactness with the C++ oracle (built -ffp-contract=off) rules out FMA
@@ -32,7 +32,6 @@ NVCC_FLAGS = [
     "-prec-sqrt=true",
     "-ftz=false",
     "-Xptxas", "-v",
-    "-shared",
     "-Xcompiler", "-fPIC",
 ]
 
@@ -70,8 +69,9 @@ def log_path() -> Path:
 
 def build(force: bool = False) -> Path:
     """Compile the kernel library if it is missing or stale; returns its
-    path.  nvcc's output (with the -Xptxas -v register and spill lines)
-    is kept in ``log_path()``.  Raises if nvcc fails."""
+    path.  One nvcc per source, all started together, then one link.
+    nvcc's output (with the -Xptxas -v register and spill lines) is kept
+    in ``log_path()``.  Raises if nvcc fails."""
     out = lib_path()
     stamp_file = BUILD_DIR / "sources.stamp"
     stamp = _stamp()
@@ -79,20 +79,36 @@ def build(force: bool = False) -> Path:
             and stamp_file.read_text() == stamp):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    log = []
     # build beside the target and rename, so a concurrent loader never
     # maps a half-written library
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(SRC_DIR / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log_path().write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (s + ".o")) for s in SOURCES]
+        jobs = []
+        for src, obj in zip(SOURCES, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(SRC_DIR / src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        lib_tmp = str(Path(tmp) / LIB_NAME)
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        failed = None
+        for cmd, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0 and failed is None:
+                failed = f"nvcc failed ({proc.returncode}):\n{text}"
+        if failed is None:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed = (f"nvcc link failed ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+        log_path().write_text("".join(log))
+        if failed is not None:
+            raise RuntimeError(failed)
+        os.replace(lib_tmp, out)
     stamp_file.write_text(stamp)
     return out
 

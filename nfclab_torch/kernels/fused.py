@@ -86,6 +86,8 @@ def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the argument
     types of every entry point."""
     from .conditioner import CondScanArgs
+    from .fused_v2 import V2Args
+    from .probes import CopyProbeArgs, ProbeArgs
 
     lib = ctypes.CDLL(str(build()))
     lib.nfclab_ff_scan.argtypes = [
@@ -103,6 +105,23 @@ def library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.nfclab_cond_scan.restype = ctypes.c_int
+    for name in ("nfclab_v2_scan", "nfclab_v2_mask"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(V2Args), ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.nfclab_v2_nstate.argtypes = []
+    lib.nfclab_v2_nstate.restype = ctypes.c_int
+    lib.nfclab_copy_probe.argtypes = [
+        ctypes.POINTER(CopyProbeArgs), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.nfclab_copy_probe.restype = ctypes.c_int
+    lib.nfclab_cond_probe.argtypes = [
+        ctypes.POINTER(ProbeArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.nfclab_cond_probe.restype = ctypes.c_int
     lib.nfclab_ff_error_string.argtypes = [ctypes.c_int]
     lib.nfclab_ff_error_string.restype = ctypes.c_char_p
     return lib

@@ -217,6 +217,7 @@ def test_condition_jax_bit_exact_synth():
     x = np.concatenate([tp[0].samples, tp[4].samples[:60_000]])
     stats = _check_condition_jax(x, block=32768, halo=4096)
     assert stats["blocks"] == 4
+    assert stats["edge_tracker_s"] >= 0.0
 
 
 def test_condition_jax_repair_path():

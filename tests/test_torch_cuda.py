@@ -4,8 +4,9 @@ machine without one).  Run them on the GPU machine with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Each kernel must equal its plain PyTorch version bit for bit on the same
-CUDA inputs, the mask path on CUDA must give the triggers of the CPU path,
-and the device conditioner on CUDA must equal the C++ oracle."""
+CUDA inputs (the experiments/ counterparts included), the mask path on
+CUDA must give the triggers of the CPU path, and the device conditioner on
+CUDA must equal the C++ oracle."""
 
 import numpy as np
 import pytest
@@ -104,6 +105,66 @@ def test_condition_kernel_equals_plain_on_card(cuda):
                                init[5] + 613, pt)
     for a, b, c in zip(whole, first, second):
         assert _same(a, torch.cat([b, c], 1))
+
+
+def test_v2_kernels_equal_plain_on_card(cuda):
+    """fused_v2_scan and fused_v2_mask against the plain versions: 300
+    streams, two chained chunks (the second looks back across the first
+    and into the zero rings before the stream), state included."""
+    from nfclab_torch.experiments import fused_v2 as v2
+
+    pt, mp = _params()
+    x = torch.from_numpy(mixed_lanes(300, 1024, seed=5)).to(cuda)
+    before = [k.launches for k in v2.KERNELS]
+    st = stp = None
+    for off in (0, 512):
+        got, st = v2.fused_frontend(x[:, off : off + 512], pt,
+                                    mask_params=mp, state=st, base=40 + off,
+                                    return_state=True)
+        want, stp = v2.fused_frontend_plain(
+            x[:, off : off + 512], pt, mask_params=mp, state=stp,
+            base=40 + off, return_state=True)
+        for k in want:
+            assert _same(got[k], want[k]), k
+        assert _same(st, stp)
+    assert [k.launches for k in v2.KERNELS] == [n + 2 for n in before]
+
+
+@pytest.mark.parametrize("mode", ["serial", "pair"])
+def test_probe_kernels_equal_plain_on_card(cuda, mode):
+    """The conditioning probes against their plain versions on 2 groups x
+    320 lanes (not a multiple of the 32-thread block), with field-off
+    stretches past the silence timeout and a zero first sample; pair
+    equals serial bit for bit."""
+    from nfclab_torch.experiments import probe_pair_spec as pps
+
+    x = mixed_lanes(640, 2400, seed=6)
+    x[::4, 300:1700] = 0.0
+    x[0, 0] = 0.0
+    v = torch.from_numpy(np.ascontiguousarray(
+        x.reshape(2, 320, 2400).transpose(0, 2, 1))).to(cuda)
+    got = pps.pair_probe(v, mode)
+    want = pps.pair_probe_plain(v, mode)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    other = pps.pair_probe(v, "pair" if mode == "serial" else "serial")
+    for a, b in zip(got, other):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_copy_probe_equals_plain_on_card(cuda):
+    """The copy kernel on an unaligned view with a ragged tail, several
+    sweeps: equal to torch.mul bit for bit."""
+    from nfclab_torch.experiments import membw_probe as mb
+
+    base = torch.rand(4 * 1000 + 3, device=cuda)
+    x = base[1:]          # 4-byte offset: the wrapper realigns it
+    before = mb.COPY.launches
+    got = mb.copy_probe(x, nout=5, sweeps=3)
+    want = mb.copy_probe_plain(x, nout=5)
+    assert mb.COPY.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_condition_jax_and_frontend_on_card(cuda):
