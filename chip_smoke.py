@@ -17,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    conditioning kernel from a seeded initial state with non-zero clocks and
    pulse counts; every output and the state must be bit-exact.
    Conditioning must be bit-exact against the C++ oracle on 8 streams, for
-   both kernels.  Repeated at 3.2 MS/s.  Then the experiments/ kernels,
+   both kernels.  Then both scans on lanes that put the envelope test on
+   its boundary (check_boundary: 2**22 streams each, special values, and
+   ragged shapes).  Repeated at 3.2 MS/s.  Then the experiments/ kernels,
    bit-exact against their plain versions: the conditioning probes at one
    group x 4096 samples x 2048 lanes (pair equal to serial), the copy
    probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks of 4096
@@ -26,8 +28,11 @@ Phases (any failure raises and the script exits non-zero):
    on their inputs: two [65536, 1024] chunks of the mask path's captures,
    the second with carried state at a folded clock base, and one 1024 x
    65536 chunk with carried state for the conditioning kernel; bit-exact
-   again.  Kernel times on those inputs (CUDA events over 5 launches),
-   plain times from the comparison.
+   again, and the conditioning kernel at the repair shape (1 x 65536)
+   equal to stream 0 of that run.  Kernel times and ns per step on those
+   inputs (CUDA events over 5 launches), the repair shape's too, plain
+   times from the comparison; the scans' ptxas register and spill lines
+   and shared memory per block.
 4. The mask path at full width: chained_batch_masks over 1024 captures of
    2,097,152 samples at 10 MS/s (one production window: 32 chunks of
    65536), the launch counts read around exactly that call and its time
@@ -97,6 +102,9 @@ PROBE_OPS = 25            # float operations per sample of the probes
 V2_SCAN_OPS = 50          # per sample: conditioning, mod_depth, 9 boxes
 V2_MASK_OPS = 47          # per sample: 5 SD cascades, 2 edges, V, gate
 V2_STREAMS, V2_CHUNK = 4096, 16384   # bench_v2's first v2 configuration
+BOUNDARY_STREAMS = 1 << 22  # streams of the boundary phase
+BOUNDARY_SLICE = 1 << 18    # fused_scan streams a call there (its state is
+                            # nstate rows a stream: 2109 at 10 MS/s)
 
 
 def log(*a):
@@ -124,14 +132,18 @@ def _same(a, b) -> bool:
 
 
 def _err(a, b) -> float:
-    """Largest |a - b| over entries that are not both NaN."""
+    """Largest |a - b| over entries that are not equal (an infinity equals
+    itself) and not both NaN; in float64, 2**26 entries at a time."""
     import torch
 
-    d = (a.double() - b.double()).abs()
-    both_nan = torch.isnan(a.double()) & torch.isnan(b.double())
-    d = torch.where(both_nan, torch.zeros_like(d), d)
-    d = torch.nan_to_num(d, nan=float("inf"))
-    return float(d.max()) if d.numel() else 0.0
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, a.numel(), 1 << 26):
+        x, y = a[i : i + (1 << 26)].double(), b[i : i + (1 << 26)].double()
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        d = torch.where(same, torch.zeros_like(x), (x - y).abs())
+        worst = max(worst, float(torch.nan_to_num(d, nan=float("inf")).max()))
+    return worst
 
 
 def _hold(errs, name, got, want, what):
@@ -359,6 +371,110 @@ def check_condition_kernel(dev, rate, chunk, n_chunks, errs, lanes=8):
         f"{rate} Hz")
 
 
+def _boundary_state(env0, x0, rate, seed):
+    """Carry for boundary lanes: env0 as built, w1 at its steady state,
+    a small deviation, the average at v, pulse counts up to twice the
+    silence timeout and clocks up to three ETU (some lanes seeding)."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import SignalParams
+
+    etu = SignalParams(rate).elementary_time_unit
+    rng = np.random.default_rng(seed)
+    b, dev = x0.shape[0], x0.device
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    return (env0, x0 * 10.0,
+            t(rng.uniform(0.0, 1e-3, b).astype(np.float32)), x0.clone(),
+            t(rng.integers(0, 20 * etu, b).astype(np.int32)),
+            t(rng.integers(0, 3 * etu, b).astype(np.int32)))
+
+
+def check_boundary(dev, rate, errs):
+    """Both redesigned scans on inputs that put their divide-free envelope
+    test on its boundary (torch_synth.boundary_lanes: v = env * (1 +- 0.05)
+    moved by -4..4 ulps, env from the subnormals to 3.4e38, special values
+    on one lane in 32), bit-exact against their plain versions.
+    condition_scan: BOUNDARY_STREAMS + 17 streams x 8 steps, then 1 stream
+    (the repair shape), 1001 and 33 streams at ragged lengths, then
+    BOUNDARY_STREAMS x 32 with env and v in [2^-61, 2^91] and no special
+    value (the positive-envelope groups).  fused_scan
+    (state rows 0 and 4 crafted, the rest random): BOUNDARY_STREAMS streams
+    in slices of BOUNDARY_SLICE x 8 steps at a clock base 3 below
+    plan.fold_modulus, every output kept; then B = 1000 x 250 steps from
+    clock 0 (T not a multiple of the staged tile, seeding), 1001 x 5 (B not
+    a multiple of 4: 4-byte staging; T below the group size), and 64 x 121
+    with a misaligned sample pointer, the last with the mask path's
+    selection."""
+    import torch
+
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp import fused_frontend as ff
+    from torch_synth import boundary_lanes
+
+    pt, _, _ = _params(rate)
+    # the last case keeps env and v in [2^-61, 2^91], so every warp's
+    # groups of 16 steps take the positive-envelope test alone
+    for i, (b, t, binades, specials) in enumerate((
+            (BOUNDARY_STREAMS + 17, 8, (-149, 128), True),
+            (1, 37, (-149, 128), True), (1001, 53, (-149, 128), True),
+            (33, 3, (-149, 128), True), (BOUNDARY_STREAMS, 32, (-60, 90),
+                                          False))):
+        env0, x = (torch.from_numpy(a).to(dev)
+                   for a in boundary_lanes(b, t, 40 + i, binades, specials))
+        init = _boundary_state(env0, x[:, 0], rate, seed=50 + i)
+        got = ck.condition_scan(x, *init, pt)
+        want = ck.condition_scan_plain(x, *init, pt)
+        _cond_compare(got, want, errs, f"boundary, {b} x {t} at {rate} Hz")
+        del env0, x, init, got, want
+    torch.cuda.synchronize()
+    log(f"condition_scan == plain (bit-exact) on boundary lanes at {rate} "
+        f"Hz: {BOUNDARY_STREAMS + 17} x 8, 1 x 37, 1001 x 53, 33 x 3, and "
+        f"{BOUNDARY_STREAMS} x 32 with positive envelopes")
+
+    plan = ff.kernel_plan(rate)
+    mod = plan.fold_modulus
+    keep_all = ff._extra_names(plan)
+    gen = torch.Generator(device=dev)
+    cases = [(BOUNDARY_SLICE, 8, mod - 3, keep_all, False)] * (
+        BOUNDARY_STREAMS // BOUNDARY_SLICE)
+    cases += [(1000, 250, 0, keep_all, False), (1001, 5, mod - 2, keep_all,
+                                                False),
+              (64, 121, 7, (), True)]
+    for i, (b, t, base, keep, misaligned) in enumerate(cases):
+        env0, x = (torch.from_numpy(a).to(dev)
+                   for a in boundary_lanes(b, t, seed=60 + i))
+        carry = _boundary_state(env0, x[:, 0], rate, seed=70 + i)
+        gen.manual_seed(80 + i)
+        st = torch.rand(plan.nstate, b, generator=gen, device=dev) * 1e-2
+        for row, val in zip(range(5), carry):
+            st[row] = val.float()
+        value_tm = x.t().contiguous()
+        if misaligned:
+            buf = torch.empty(t * b + 1, device=dev)
+            buf[1:] = value_tm.reshape(-1)
+            value_tm = buf[1:].view(t, b)
+        deps_k, extra_k, so_k = ff.fused_scan(value_tm, st, base, pt, plan,
+                                              keep)
+        deps_p, extra_p, so_p = ff._scan_plain(value_tm, st, base, pt, plan,
+                                               keep)
+        what = f"boundary, {b} x {t}, base {base} at {rate} Hz"
+        _hold(errs, "fused_scan", deps_k, deps_p, what)
+        _hold(errs, "fused_scan", so_k, so_p, what)
+        for n in keep:
+            _hold(errs, "fused_scan", extra_k[n], extra_p[n], f"{n}, {what}")
+        del env0, x, carry, st, value_tm, deps_k, extra_k, so_k, deps_p
+        del extra_p, so_p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"fused_scan == plain (bit-exact) on boundary lanes at {rate} Hz: "
+        f"{BOUNDARY_STREAMS} x 8 at base {mod - 3} in slices of "
+        f"{BOUNDARY_SLICE}, 1000 x 250, 1001 x 5, 64 x 121 misaligned")
+
+
 def check_condition_main_shape(dev, caps, errs):
     """cond_scan_kernel against its plain version at the main path's
     shape, on its captures: one [65536, 1024] chunk (the second of each
@@ -395,13 +511,26 @@ def check_condition_main_shape(dev, caps, errs):
     _cond_compare(got, want, errs, f"{STREAMS} x {chunk}, carried state")
     log(f"condition_scan == plain (bit-exact) at {STREAMS} streams x "
         f"{chunk}, carried state at clock {chunk}")
-    del got, want
+    # the repair shape: stream 0 alone, against its column of the checked
+    # run
+    x_one = x1[:, :1].contiguous()
+    init_one = tuple(t[:1].contiguous() for t in init)
+    one = ck.condition_scan_tm(x_one, *init_one, pt)
+    _cond_compare(one, [g[:, :1] for g in got], errs,
+                  f"1 x {chunk} against stream 0 of {STREAMS} x {chunk}")
+    log(f"condition_scan at 1 x {chunk} == stream 0 of the checked run")
+    del got, want, one
     ms = _event_ms(lambda: ck.condition_scan_tm(x1, *init, pt), 5)
+    repair_ms = _event_ms(
+        lambda: ck.condition_scan_tm(x_one, *init_one, pt), 5)
     # each input read once (4 B/sample and the 24 B initial state of a
     # stream), each output written once (24 B/sample); COND_OPS float and
     # counter operations per sample at the f32 rate
     n = chunk * STREAMS
     return {"cond_ms": ms, "cond_plain_ms": plain_ms,
+            "cond_ns_per_step": ms * 1e6 / chunk,
+            "cond_repair_ms": repair_ms,
+            "cond_repair_ns_per_step": repair_ms * 1e6 / chunk,
             "cond_bound": _bound(28 * n + 24 * STREAMS, COND_OPS * n)}
 
 
@@ -479,6 +608,7 @@ def check_main_shape(dev, caps, errs):
     so_t = so_k.clone()
     t["scan_ms"] = _event_ms(
         lambda: ff.fused_scan(x_tm, st_in, base, pt, plan), 5)
+    t["scan_ns_per_step"] = t["scan_ms"] * 1e6 / chunk
     t["mask_ms"] = _event_ms(
         lambda: ff.fused_mask(deps_k, x_tm, st_in, so_t, mp, plan), 5)
     t["chunk_mask_ms"] = _event_ms(
@@ -505,6 +635,28 @@ def check_main_shape(dev, caps, errs):
     t["chunk_mask_bound"] = _bound(5 * n + 2 * state_b,
                                    (scan_ops + mask_ops) * n)
     return t
+
+
+def log_scan_resources(kbuild):
+    """The ptxas register and spill lines of the two scan kernels (every
+    instantiation of ff_scan_kernel) and ff_scan_kernel's shared memory per
+    block at 10 and 3.2 MS/s (cond_scan_kernel uses none)."""
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.kernels import fused as kf
+
+    entry = None
+    for ln in kbuild.ptxas_lines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif entry and ("ff_scan_kernel" in entry
+                        or "cond_scan_kernel" in entry) and (
+                "Used" in ln or "spill" in ln):
+            log(f"  {entry}: {ln.split(':', 1)[-1].strip()}")
+    for rate in (RATE, 3_200_000):
+        plan = ff.kernel_plan(rate)
+        log(f"  ff_scan_kernel at {rate} Hz: group {kf.scan_group(plan)}, "
+            f"{kf.scan_smem(ff._layout(plan).ring_rows)} B of shared memory "
+            f"per block of {kf.SCAN_THREADS} threads")
 
 
 def _bound(nbytes, ops):
@@ -1127,6 +1279,7 @@ def main(argv=None) -> int:
     del x, outs
     for rate in (RATE, 3_200_000):
         check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
+        check_boundary(dev, rate, errs)
     check_experiment_kernels(dev, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
@@ -1143,6 +1296,7 @@ def main(argv=None) -> int:
     tk = check_main_shape(dev, caps, errs)
     tk.update(check_condition_main_shape(dev, caps, errs))
     log(f"times at {STREAMS} x 65536 (ms): {json.dumps(tk)}")
+    log_scan_resources(kbuild)
 
     # 4. the main path at full width
     res, dt, launches, peak, steps = run_main_path(caps)
@@ -1178,6 +1332,11 @@ def main(argv=None) -> int:
     ekt, elaunch = run_experiments(dev, errs, tpls)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    per_step = {"fused_scan": {"ns_per_step": tk["scan_ns_per_step"]},
+                "condition_scan": {
+                    "ns_per_step": tk["cond_ns_per_step"],
+                    "repair_ms": tk["cond_repair_ms"],
+                    "repair_ns_per_step": tk["cond_repair_ns_per_step"]}}
     kernels = []
     for name, key, src, tpu, n in (
             ("fused_scan", "scan", SOURCE, TPU_KERNEL, launches["fused_scan"]),
@@ -1190,7 +1349,7 @@ def main(argv=None) -> int:
             "replaces": tpu, "launches": n,
             "max_abs_err": errs[name], "ms": tk[f"{key}_ms"],
             "plain_ms": tk[f"{key}_plain_ms"], "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
+            "bound_by": by, "library_ms": None, **per_step.get(name, {}),
         })
     for name, src, tpu in (
             ("fused_v2_scan", V2_SOURCE, V2_TPU_KERNEL),

@@ -8,12 +8,14 @@
 //
 // Two kernels, called in order for every chunk of T samples:
 //
-//   ff_scan_kernel  one thread per stream, serial over the chunk: the
-//                   conditioning chain (envelope, IIR DC filter, deviation
-//                   and average EMAs, NfcTech.cpp:39-68) and the running
-//                   box sums (sum + v) - old over rings indexed by the
-//                   absolute clock.  Rings live in shared memory, one
-//                   column per thread; carry and sums live in registers.
+//   ff_scan_kernel  serial over the chunk, 32 streams per block, one lane
+//                   each, with the work split over warps: the conditioning
+//                   chain (envelope, IIR DC filter, deviation and average
+//                   EMAs, NfcTech.cpp:39-68) and the running box sums
+//                   (sum + v) - old over rings indexed by the absolute
+//                   clock.  Rings live in shared memory, one column per
+//                   lane; carry and sums live in registers.  The layout of
+//                   the block is described above the kernel below.
 //   ff_mask_kernel  one thread per (sample, stream): mod_depth and the
 //                   packed detect_mask from the box and filtered channels
 //                   at fixed lags (lookbacks before the chunk come from the
@@ -27,15 +29,38 @@
 // What bounds it on this card: the mask-only chunk must move about
 // 5 bytes per sample (4 in, 1 out), 0.1 ms for 1024 x 65536 samples at
 // 3.35 TB/s, and does ~60 float operations per sample, far below the
-// 67 TFLOP/s f32 peak; so on paper it is memory-bound.  In fact it is
-// latency-bound: the recurrence is serial in time, so one stream is one
-// thread, and 1024 streams are 32 warps -- one warp on each of 32 of the
-// 132 SMs, each warp waiting on its own dependent chain of shared-memory
-// and global accesses at every sample.  Most of the card stays idle until
-// more streams are batched, or a stream is split across threads (the
-// segmented engine of the JAX package).  The two-pass design also writes
-// and re-reads the six mask dependency channels (24 B/sample) through L2
-// and HBM; that is the first thing to fuse once the serial phase is fast.
+// 67 TFLOP/s f32 peak; so on paper it is memory-bound.  In fact the scan
+// is bound by the latency and issue of one step: the recurrence is serial
+// in time, so one stream is one lane, and 1024 streams are 32 blocks on 32
+// of the 132 SMs.  What the scan's design does about the step:
+//   - No global load on a step's path: a producer warp stages the samples
+//     of the block's 32 streams, FF_TILE_ROWS rows at a time, into a ring
+//     of FF_STAGES shared-memory stages with cp.async (chosen over TMA: it
+//     takes any B and any alignment, with 16-byte copies where rows are
+//     aligned and 4-byte ones where not, and needs no driver entry point),
+//     each stage behind mbarriers.  Every pointer is __restrict__.
+//   - Ring reads ahead of ring writes: a warp runs its steps in groups of
+//     U (6 at 10 MS/s, where the least box width and lag is 6; 2 at
+//     3.2 MS/s), and issues all shared-ring reads of a group before its
+//     first ring write, so they overlap instead of serialising behind the
+//     step before.
+//   - Warp specialisation: the envelope, the filter chain with the q
+//     boxes, the product boxes, and the raw-value boxes are four warps
+//     that issue from four schedulers; the box counts are template
+//     arguments, so no runtime loop bound is left in a step.
+//   - The envelope test has no divide for 0 < env < inf (cond_env_near).
+// What still bounds it: one stream per lane and 32 streams per SM, so at
+// 1024 streams 100 SMs stay idle, and the step of the busiest warp sets
+// the pace.  That is the product-box warp, by issue: at 10 MS/s its
+// group of 6 steps is ~480 instructions, ~80 a step, most of them ring
+// and row address arithmetic (the raw-value warp ~52 a step, the filter
+// warp ~61, the envelope warp ~44; counted in the sm_90a SASS), against
+// ~92 ns a step measured on an H100 (PERF.md).  Fewer address operations
+// a step, or the product boxes split over two warps, come next; more
+// streams per call, or a stream split across threads (the segmented
+// engine of the JAX package), fill the card.  The two-pass design also
+// writes and re-reads the six mask dependency channels (24 B/sample)
+// through L2 and HBM.
 //
 // Numerics: the contract is bit-exactness with the C++ oracle, which is
 // built with -ffp-contract=off.  Build with -fmad=false -prec-div=true
@@ -86,6 +111,7 @@ struct FFScanArgs {
     int32_t hist_off;        // history rows, copied through unchanged
     int32_t hist_rows;
     int32_t sums_off;
+    int32_t group;           // steps per ring-read group (ff_scan_kernel)
 };
 
 struct FFMaskArgs {
@@ -122,140 +148,522 @@ struct FFMaskArgs {
 
 }  // extern "C"
 
-__global__ void ff_scan_kernel(const FFScanArgs a)
+// ---------------------------------------------------------------------------
+// ff_scan_kernel: the serial phase, warp-specialised
+//
+// Block of FF_SCAN_WARPS warps for 32 streams (lane = stream).  Warp 4
+// stages [FF_TILE_ROWS, 32] sample tiles into a ring of FF_STAGES shared
+// stages with cp.async, each stage behind a "full" mbarrier (the copies
+// landed) and an "empty" one (the four consumer warps are done with it).
+// The consumers each read every staged sample and own disjoint outputs,
+// state rows and rings, so nothing but the stages is shared:
+//   warp 0  envelope + float silence counter: deps envelope; rows 0, 4
+//   warp 1  w1 -> filt -> mdev, avg, the q boxes over the rq ring: deps
+//           filtered, out_mdev, out_avg, out_q; rows 1-3, rq, q sums
+//   warp 2  its own w1 -> filt (the same operations, the same bits), the
+//           product boxes over the rf and rp rings: out_p; rf, rp, p sums
+//   warp 3  the raw-value boxes over the rv ring: deps bv rows; rv, bv sums
+//   warp 4  the producer; then the rows copied through (5-7, histories)
+// Each ring is [rows][32] floats, lane = column.  A consumer takes its steps
+// in groups of U: every ring read of the group is issued before any ring
+// write, which is the sequential order as long as U <= the least box
+// width and lag of the plan (the launcher checks it), so the shared loads
+// of a group overlap instead of waiting on the stores of the step before.
+
+#define FF_SCAN_WARPS 5
+#define FF_CONSUMERS 4
+#define FF_STAGES 4
+#define FF_TILE_ROWS 120  // a multiple of every group size (1, 2, 6)
+
+__device__ __forceinline__ uint32_t ff_saddr(const void *p)
 {
-    extern __shared__ float rings[];  // [ring_rows][blockDim.x]
-    const int nt = blockDim.x;
-    const int tid = threadIdx.x;
-    const int64_t B = a.B;
-    const int64_t b = (int64_t)blockIdx.x * nt + tid;
-    if (b >= B) return;  // no barrier below: each thread owns its column
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-    const float *st_in = a.state_in;
-    float *st_out = a.state_out;
-    for (int r = 0; r < a.ring_rows; ++r)
-        rings[r * nt + tid] = st_in[(int64_t)(a.ring_off + r) * B + b];
-    float *rv = rings;
-    float *rf = rv + a.rv_ring * nt;
-    float *rq = rf + a.rf_ring * nt;
-    float *rp[FF_MAX_PB];
+__device__ __forceinline__ void ff_bar_init(uint64_t *bar, uint32_t count)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(ff_saddr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void ff_bar_arrive(uint64_t *bar)
+{
+    asm volatile("{\n\t.reg .b64 st;\n\t"
+                 "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}"
+                 :: "r"(ff_saddr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void ff_bar_wait(uint64_t *bar, uint32_t parity)
+{
+    uint32_t done;
+    do {
+        asm volatile("{\n\t.reg .pred p;\n\t"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                     "selp.u32 %0, 1, 0, p;\n\t}"
+                     : "=r"(done) : "r"(ff_saddr(bar)), "r"(parity)
+                     : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void ff_copy16(float *dst, const float *src)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(ff_saddr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void ff_copy4(float *dst, const float *src)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(ff_saddr(dst)), "l"(src) : "memory");
+}
+
+// the mbarrier counts one arrival of this thread once all of its earlier
+// cp.async copies have landed
+__device__ __forceinline__ void ff_copies_arrive(uint64_t *bar)
+{
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+                 :: "r"(ff_saddr(bar)) : "memory");
+}
+
+// What a consumer warp shares with the others: the staged tiles.
+struct FFStages {
+    float *tiles;         // [FF_STAGES][FF_TILE_ROWS][32]
+    uint64_t *full;
+    uint64_t *empty;
+};
+
+// Walk the chunk tile by tile: wait for the tile, run its rows through the
+// role in groups of U (the ragged rest one by one), hand the stage back.
+template <int U, class Role>
+__device__ __forceinline__ void ff_consume(Role &role, const FFStages &st,
+                                           int64_t T, int32_t base, int lane)
+{
+    const int ntiles = (int)((T + FF_TILE_ROWS - 1) / FF_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % FF_STAGES;
+        ff_bar_wait(st.full + s, (uint32_t)(i / FF_STAGES) & 1u);
+        const float *sv = st.tiles + s * (FF_TILE_ROWS * 32) + lane;
+        const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
+        const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
+        const int t0 = base + (int)j0;
+        role.tile(j0);
+        int r = 0;
+        for (; r + U <= n; r += U) role.template steps<U>(sv, r, t0 + r);
+        for (; r < n; ++r) role.template steps<1>(sv, r, t0 + r);
+        __syncwarp();
+        if (lane == 0) ff_bar_arrive(st.empty + s);
+    }
+}
+
+// Row pointer of a [T, B] output at stream b, moved to each tile's first
+// row; null stays null (an output not selected).  Stores are st.global
+// (they cannot alias the shared stages and rings) and stream through L2.
+struct FFOut {
+    float *__restrict__ row0;
+    float *__restrict__ cur;
+    __device__ __forceinline__ void init(float *p, int64_t b)
     {
-        float *p = rq + a.rq_ring * nt;
+        row0 = p ? p + b : nullptr;
+        cur = row0;
+    }
+    __device__ __forceinline__ void tile(int64_t j0, uint32_t B)
+    {
+        if (row0) cur = row0 + (size_t)j0 * B;
+    }
+    __device__ __forceinline__ void put(uint32_t o, float v)
+    {
+        __stcg(cur + o, v);
+    }
+};
+
+// warp 0: the envelope (NfcTech.cpp:39-53) with the float silence
+// counter, an integer-valued float exact far beyond the 10*ETU timeout
+struct FFEnvRole {
+    float env, pcount;
+    float ew0, ew1, silence;
+    int32_t etu;
+    uint32_t B;
+    bool valid;
+    FFOut out;
+
+    __device__ __forceinline__ void tile(int64_t j0) { out.tile(j0, B); }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
 #pragma unroll
-        for (int i = 0; i < FF_MAX_PB; ++i) {
-            rp[i] = p;
-            if (i < a.n_pb) p += a.rp_ring[i] * nt;
+        for (int k = 0; k < N; ++k) {
+            const float v = sv[(r + k) * 32];
+            pcount = __fadd_rn(pcount, 1.0f);
+            const bool update = cond_env_near(v, env) || (pcount > silence);
+            const bool seed = !update && (t + k < etu);
+            env = update ? cond_ema(env, ew0, v, ew1) : (seed ? v : env);
+            pcount = update ? 0.0f : pcount;
+            if (valid) out.put((uint32_t)(r + k) * B, env);
         }
     }
+};
 
-    float env = st_in[0 * B + b];
-    float w1 = st_in[1 * B + b];
-    float mdev = st_in[2 * B + b];
-    float avg = st_in[3 * B + b];
-    float pcount = st_in[4 * B + b];
-    float s_bv[FF_MAX_BV], s_q[FF_MAX_Q], s_p[FF_MAX_PB];
-#pragma unroll
-    for (int i = 0; i < FF_MAX_BV; ++i)
-        s_bv[i] = i < a.n_bv ? st_in[(int64_t)(a.sums_off + i) * B + b] : 0.f;
-#pragma unroll
-    for (int i = 0; i < FF_MAX_Q; ++i)
-        s_q[i] = i < a.n_q
-            ? st_in[(int64_t)(a.sums_off + a.n_bv + i) * B + b] : 0.f;
-#pragma unroll
-    for (int i = 0; i < FF_MAX_PB; ++i)
-        s_p[i] = i < a.n_pb
-            ? st_in[(int64_t)(a.sums_off + a.n_bv + a.n_q + i) * B + b] : 0.f;
+// warp 1: IIR DC removal, the deviation and average EMAs
+// (NfcTech.cpp:56-68) and the squared-filtered boxes over (filt*filt)*10
+template <int NQ>
+struct FFFiltRole {
+    float w1, mdev, avg;
+    float s[NQ];
+    float iir_a, mw0, mw1, aw0, aw1;
+    int32_t w[NQ];
+    float *ring;          // rq, at this lane's column
+    int32_t mask;         // rq_ring - 1
+    uint32_t B;
+    bool valid;
+    FFOut filt_out, mdev_out, avg_out, q_out[NQ];
 
-    const int RV = a.rv_ring - 1, RF = a.rf_ring - 1, RQ = a.rq_ring - 1;
+    __device__ __forceinline__ void tile(int64_t j0)
+    {
+        filt_out.tile(j0, B);
+        mdev_out.tile(j0, B);
+        avg_out.tile(j0, B);
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) q_out[i].tile(j0, B);
+    }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], old[NQ][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < NQ; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+                old[i][k] = ring[((t + k - w[i]) & mask) * 32];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+            mdev = cond_ema(mdev, mw0, fabsf(filt), mw1);
+            avg = cond_ema(avg, aw0, v[k], aw1);
+            const float q = __fmul_rn(__fmul_rn(filt, filt), 10.0f);
+#pragma unroll
+            for (int i = 0; i < NQ; ++i)
+                s[i] = __fsub_rn(__fadd_rn(s[i], q), old[i][k]);
+            ring[((t + k) & mask) * 32] = q;
+            if (valid) {
+                const uint32_t o = (uint32_t)(r + k) * B;
+                filt_out.put(o, filt);
+                if (mdev_out.cur) mdev_out.put(o, mdev);
+                if (avg_out.cur) avg_out.put(o, avg);
+#pragma unroll
+                for (int i = 0; i < NQ; ++i)
+                    if (q_out[i].cur) q_out[i].put(o, s[i]);
+            }
+        }
+    }
+};
+
+// warp 2: the BPSK product boxes over (filt*filt[t-lag])*10
+template <int NPB>
+struct FFProdRole {
+    float w1, iir_a;
+    float s[NPB];
+    int32_t lag[NPB], box[NPB], pmask[NPB];
+    float *rf;            // filtered ring, at this lane's column
+    float *rp[NPB];       // product rings, at this lane's column
+    int32_t fmask;        // rf_ring - 1
+    uint32_t B;
+    bool valid;
+    FFOut p_out[NPB];
+
+    __device__ __forceinline__ void tile(int64_t j0)
+    {
+#pragma unroll
+        for (int i = 0; i < NPB; ++i) p_out[i].tile(j0, B);
+    }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], lagged[NPB][N], old[NPB][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < NPB; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                lagged[i][k] = rf[((t + k - lag[i]) & fmask) * 32];
+                old[i][k] = rp[i][((t + k - box[i]) & pmask[i]) * 32];
+            }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+#pragma unroll
+            for (int i = 0; i < NPB; ++i) {
+                const float prod =
+                    __fmul_rn(__fmul_rn(filt, lagged[i][k]), 10.0f);
+                s[i] = __fsub_rn(__fadd_rn(s[i], prod), old[i][k]);
+                rp[i][((t + k) & pmask[i]) * 32] = prod;
+                if (valid && p_out[i].cur)
+                    p_out[i].put((uint32_t)(r + k) * B, s[i]);
+            }
+            rf[((t + k) & fmask) * 32] = filt;
+        }
+    }
+};
+
+// warp 3: the raw-value boxes (sum + v) - v[t - w]
+template <int NBV>
+struct FFBvRole {
+    float s[NBV];
+    int32_t w[NBV];
+    float *ring;          // rv, at this lane's column
+    int32_t mask;         // rv_ring - 1
+    uint32_t B;
+    bool valid;
+    FFOut out[NBV];
+
+    __device__ __forceinline__ void tile(int64_t j0)
+    {
+#pragma unroll
+        for (int i = 0; i < NBV; ++i) out[i].tile(j0, B);
+    }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], old[NBV][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < NBV; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+                old[i][k] = ring[((t + k - w[i]) & mask) * 32];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+#pragma unroll
+            for (int i = 0; i < NBV; ++i) {
+                s[i] = __fsub_rn(__fadd_rn(s[i], v[k]), old[i][k]);
+                if (valid) out[i].put((uint32_t)(r + k) * B, s[i]);
+            }
+            ring[((t + k) & mask) * 32] = v[k];
+        }
+    }
+};
+
+// state row r of stream b, 0 for a lane past the last stream
+__device__ __forceinline__ float ff_row(const float *st, int64_t r, int64_t B,
+                                        int64_t b, bool valid)
+{
+    return valid ? st[r * B + b] : 0.0f;
+}
+
+// load `rows` ring rows from state row `off` on into shared memory at this
+// lane's column
+__device__ __forceinline__ void ff_ring_in(float *ring, const float *st,
+                                           int off, int rows, int64_t B,
+                                           int64_t b, bool valid)
+{
+    for (int r = 0; r < rows; ++r)
+        ring[r * 32] = ff_row(st, off + r, B, b, valid);
+}
+
+__device__ __forceinline__ void ff_ring_out(const float *ring, float *st,
+                                            int off, int rows, int64_t B,
+                                            int64_t b, bool valid)
+{
+    if (!valid) return;
+    for (int r = 0; r < rows; ++r) st[(int64_t)(off + r) * B + b] = ring[r * 32];
+}
+
+// warp 4: keep FF_STAGES tiles in flight, then copy the rows the scan
+// passes through unchanged.  16-byte copies when every row of the block's
+// 32 columns is 16-byte aligned (B % 4 == 0, aligned samples), else 4-byte
+// ones; columns past the last stream are not copied.
+__device__ __forceinline__ void ff_produce(const FFScanArgs &a,
+                                           const FFStages &st, int lane,
+                                           int64_t b0)
+{
+    const int64_t B = a.B, T = a.T;
+    const float *src0 = a.value + b0;
+    const bool wide = (B % 4 == 0) && ((uintptr_t)a.value % 16 == 0);
+    const int ntiles = (int)((T + FF_TILE_ROWS - 1) / FF_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % FF_STAGES;
+        if (i >= FF_STAGES)
+            ff_bar_wait(st.empty + s, (uint32_t)(i / FF_STAGES - 1) & 1u);
+        const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
+        const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
+        float *dst = st.tiles + s * (FF_TILE_ROWS * 32);
+        const float *src = src0 + j0 * B;
+        if (wide) {
+            for (int c = lane; c < n * 8; c += 32) {
+                const int r = c >> 3, col = (c & 7) * 4;
+                if (b0 + col < B)
+                    ff_copy16(dst + r * 32 + col, src + (int64_t)r * B + col);
+            }
+        } else if (b0 + lane < B) {
+            for (int r = 0; r < n; ++r)
+                ff_copy4(dst + r * 32 + lane, src + (int64_t)r * B + lane);
+        }
+        ff_copies_arrive(st.full + s);
+    }
+    const int64_t b = b0 + lane;
+    if (b < B) {
+        for (int r = 5; r < 8; ++r) a.state_out[r * B + b] = a.state_in[r * B + b];
+        for (int r = 0; r < a.hist_rows; ++r) {
+            const int64_t k = (int64_t)(a.hist_off + r) * B + b;
+            a.state_out[k] = a.state_in[k];
+        }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+extern __shared__ __align__(16) unsigned char ff_dyn_smem[];
+
+template <int U, int NBV, int NQ, int NPB>
+__global__ void __launch_bounds__(FF_SCAN_WARPS * 32)
+ff_scan_kernel(const FFScanArgs a)
+{
+    uint64_t *bars = reinterpret_cast<uint64_t *>(ff_dyn_smem);
+    FFStages st;
+    st.full = bars;
+    st.empty = bars + FF_STAGES;
+    st.tiles = reinterpret_cast<float *>(ff_dyn_smem + 16 * FF_STAGES);
+    float *rings = st.tiles + FF_STAGES * FF_TILE_ROWS * 32;
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int64_t B = a.B;
+    const int64_t b0 = (int64_t)blockIdx.x * 32;
+    const int64_t b = b0 + lane;
+    const bool valid = b < B;  // every lane runs: the warps meet at barriers
+    const uint32_t Bu = (uint32_t)B;
+    const float *sti = a.state_in;
+    float *sto = a.state_out;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < FF_STAGES; ++s) {
+            ff_bar_init(st.full + s, 32);
+            ff_bar_init(st.empty + s, FF_CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // shared rings in state order: rv, rf, rq, then the product rings
+    float *rv = rings + lane;
+    float *rf = rv + a.rv_ring * 32;
+    float *rq = rf + a.rf_ring * 32;
+    float *rp0 = rq + a.rq_ring * 32;
+    const int rv_off = a.ring_off;
+    const int rf_off = rv_off + a.rv_ring;
+    const int rq_off = rf_off + a.rf_ring;
+    const int rp_off = rq_off + a.rq_ring;
     const int64_t TB = a.T * B;
-    float *d_filt = a.deps + (int64_t)a.n_bv * TB;
-    float *d_env = d_filt + TB;
 
-    for (int64_t j = 0; j < a.T; ++j) {
-        const int t = a.base + (int)j;
-        const int64_t o = j * B + b;
-        const float v = a.value[o];
-
-        // conditioning (NfcTech.cpp:39-68); the silence counter is an
-        // integer-valued float, exact far beyond the 10*ETU timeout
-        const float diff = cond_env_diff(v, env);
-        pcount = __fadd_rn(pcount, 1.0f);
-        const bool update = (diff < 0.05f) || (pcount > a.silence);
-        const bool seed = !update && (t < a.etu);
-        env = update ? cond_ema(env, a.enve_w0, v, a.enve_w1)
-                     : (seed ? v : env);
-        pcount = update ? 0.0f : pcount;
-        float filt;
-        w1 = cond_iir(v, w1, a.iir_a, &filt);
-        mdev = cond_ema(mdev, a.mdev_w0, fabsf(filt), a.mdev_w1);
-        avg = cond_ema(avg, a.mean_w0, v, a.mean_w1);
-        d_env[o] = env;
-        d_filt[o] = filt;
-        if (a.out_mdev) a.out_mdev[o] = mdev;
-        if (a.out_avg) a.out_avg[o] = avg;
-
-        // raw-value boxes
-#pragma unroll
-        for (int i = 0; i < FF_MAX_BV; ++i) {
-            if (i < a.n_bv) {
-                const float old = rv[((t - a.bv_w[i] + a.rv_ring) & RV) * nt + tid];
-                s_bv[i] = __fsub_rn(__fadd_rn(s_bv[i], v), old);
-                a.deps[(int64_t)i * TB + o] = s_bv[i];
-            }
+    if (warp == 0) {
+        FFEnvRole r;
+        r.env = ff_row(sti, 0, B, b, valid);
+        r.pcount = ff_row(sti, 4, B, b, valid);
+        r.ew0 = a.enve_w0;
+        r.ew1 = a.enve_w1;
+        r.silence = a.silence;
+        r.etu = a.etu;
+        r.B = Bu;
+        r.valid = valid;
+        r.out.init(a.deps + (int64_t)(NBV + 1) * TB, b);
+        ff_consume<U>(r, st, a.T, a.base, lane);
+        if (valid) {
+            sto[0 * B + b] = r.env;
+            sto[4 * B + b] = r.pcount;
         }
-        rv[(t & RV) * nt + tid] = v;
-
-        // squared-filtered boxes over (filt*filt)*10
-        const float q = __fmul_rn(__fmul_rn(filt, filt), 10.0f);
+    } else if (warp == 1) {
+        FFFiltRole<NQ> r;
+        r.w1 = ff_row(sti, 1, B, b, valid);
+        r.mdev = ff_row(sti, 2, B, b, valid);
+        r.avg = ff_row(sti, 3, B, b, valid);
+        r.iir_a = a.iir_a;
+        r.mw0 = a.mdev_w0;
+        r.mw1 = a.mdev_w1;
+        r.aw0 = a.mean_w0;
+        r.aw1 = a.mean_w1;
+        r.ring = rq;
+        r.mask = a.rq_ring - 1;
+        r.B = Bu;
+        r.valid = valid;
+        r.filt_out.init(a.deps + (int64_t)NBV * TB, b);
+        r.mdev_out.init(a.out_mdev, b);
+        r.avg_out.init(a.out_avg, b);
 #pragma unroll
-        for (int i = 0; i < FF_MAX_Q; ++i) {
-            if (i < a.n_q) {
-                const float old = rq[((t - a.q_w[i] + a.rq_ring) & RQ) * nt + tid];
-                s_q[i] = __fsub_rn(__fadd_rn(s_q[i], q), old);
-                if (a.out_q[i]) a.out_q[i][o] = s_q[i];
-            }
+        for (int i = 0; i < NQ; ++i) {
+            r.s[i] = ff_row(sti, a.sums_off + NBV + i, B, b, valid);
+            r.w[i] = a.q_w[i];
+            r.q_out[i].init(a.out_q[i], b);
         }
-        rq[(t & RQ) * nt + tid] = q;
-
-        // BPSK product boxes over (filt*filt[t-lag])*10
+        ff_ring_in(rq, sti, rq_off, a.rq_ring, B, b, valid);
+        ff_consume<U>(r, st, a.T, a.base, lane);
+        if (valid) {
+            sto[1 * B + b] = r.w1;
+            sto[2 * B + b] = r.mdev;
+            sto[3 * B + b] = r.avg;
 #pragma unroll
-        for (int i = 0; i < FF_MAX_PB; ++i) {
-            if (i < a.n_pb) {
-                const float lagged =
-                    rf[((t - a.pb_lag[i] + a.rf_ring) & RF) * nt + tid];
-                const float prod = __fmul_rn(__fmul_rn(filt, lagged), 10.0f);
-                const int rs = a.rp_ring[i];
-                const float old = rp[i][((t - a.pb_box[i] + rs) & (rs - 1)) * nt + tid];
-                s_p[i] = __fsub_rn(__fadd_rn(s_p[i], prod), old);
-                if (a.out_p[i]) a.out_p[i][o] = s_p[i];
-                rp[i][(t & (rs - 1)) * nt + tid] = prod;
-            }
+            for (int i = 0; i < NQ; ++i)
+                sto[(int64_t)(a.sums_off + NBV + i) * B + b] = r.s[i];
         }
-        rf[(t & RF) * nt + tid] = filt;
-    }
-
-    st_out[0 * B + b] = env;
-    st_out[1 * B + b] = w1;
-    st_out[2 * B + b] = mdev;
-    st_out[3 * B + b] = avg;
-    st_out[4 * B + b] = pcount;
-    for (int r = 5; r < 8; ++r) st_out[r * B + b] = st_in[r * B + b];
-    for (int r = 0; r < a.ring_rows; ++r)
-        st_out[(int64_t)(a.ring_off + r) * B + b] = rings[r * nt + tid];
+        ff_ring_out(rq, sto, rq_off, a.rq_ring, B, b, valid);
+    } else if (warp == 2) {
+        FFProdRole<NPB> r;
+        r.w1 = ff_row(sti, 1, B, b, valid);
+        r.iir_a = a.iir_a;
+        r.rf = rf;
+        r.fmask = a.rf_ring - 1;
+        r.B = Bu;
+        r.valid = valid;
+        int rows = 0;
 #pragma unroll
-    for (int i = 0; i < FF_MAX_BV; ++i)
-        if (i < a.n_bv) st_out[(int64_t)(a.sums_off + i) * B + b] = s_bv[i];
+        for (int i = 0; i < NPB; ++i) {
+            r.s[i] = ff_row(sti, a.sums_off + NBV + NQ + i, B, b, valid);
+            r.lag[i] = a.pb_lag[i];
+            r.box[i] = a.pb_box[i];
+            r.pmask[i] = a.rp_ring[i] - 1;
+            r.rp[i] = rp0 + rows * 32;
+            rows += a.rp_ring[i];
+            r.p_out[i].init(a.out_p[i], b);
+        }
+        ff_ring_in(rf, sti, rf_off, a.rf_ring, B, b, valid);
+        ff_ring_in(rp0, sti, rp_off, rows, B, b, valid);
+        ff_consume<U>(r, st, a.T, a.base, lane);
+        if (valid) {
 #pragma unroll
-    for (int i = 0; i < FF_MAX_Q; ++i)
-        if (i < a.n_q)
-            st_out[(int64_t)(a.sums_off + a.n_bv + i) * B + b] = s_q[i];
+            for (int i = 0; i < NPB; ++i)
+                sto[(int64_t)(a.sums_off + NBV + NQ + i) * B + b] = r.s[i];
+        }
+        ff_ring_out(rf, sto, rf_off, a.rf_ring, B, b, valid);
+        ff_ring_out(rp0, sto, rp_off, rows, B, b, valid);
+    } else if (warp == 3) {
+        FFBvRole<NBV> r;
+        r.ring = rv;
+        r.mask = a.rv_ring - 1;
+        r.B = Bu;
+        r.valid = valid;
 #pragma unroll
-    for (int i = 0; i < FF_MAX_PB; ++i)
-        if (i < a.n_pb)
-            st_out[(int64_t)(a.sums_off + a.n_bv + a.n_q + i) * B + b] = s_p[i];
-    for (int r = 0; r < a.hist_rows; ++r) {
-        const int64_t k = (int64_t)(a.hist_off + r) * B + b;
-        st_out[k] = st_in[k];
+        for (int i = 0; i < NBV; ++i) {
+            r.s[i] = ff_row(sti, a.sums_off + i, B, b, valid);
+            r.w[i] = a.bv_w[i];
+            r.out[i].init(a.deps + (int64_t)i * TB, b);
+        }
+        ff_ring_in(rv, sti, rv_off, a.rv_ring, B, b, valid);
+        ff_consume<U>(r, st, a.T, a.base, lane);
+        if (valid) {
+#pragma unroll
+            for (int i = 0; i < NBV; ++i)
+                sto[(int64_t)(a.sums_off + i) * B + b] = r.s[i];
+        }
+        ff_ring_out(rv, sto, rv_off, a.rv_ring, B, b, valid);
+    } else {
+        ff_produce(a, st, lane, b0);
     }
 }
 
@@ -354,21 +762,65 @@ __global__ void ff_mask_kernel(const FFMaskArgs a)
     a.out_mask[o] = (uint8_t)m;
 }
 
+typedef void (*FFScanKernel)(const FFScanArgs);
+
+// the instantiated kernels: every plan from 0.5 to 40 MS/s has 3 or 4 raw
+// boxes, 2 squared and 3 product boxes; groups of 6 serve 10 MS/s, of 2
+// 3.2 MS/s, of 1 any plan
+static FFScanKernel ff_scan_pick(int group, int nbv, int nq, int npb)
+{
+    if (nq != 2 || npb != 3) return nullptr;
+#define FF_PICK(U_, NBV_) \
+    if (group == U_ && nbv == NBV_) return ff_scan_kernel<U_, NBV_, 2, 3>;
+    FF_PICK(6, 4) FF_PICK(2, 4) FF_PICK(1, 4)
+    FF_PICK(6, 3) FF_PICK(2, 3) FF_PICK(1, 3)
+#undef FF_PICK
+    return nullptr;
+}
+
+// the least distance, in steps, between a ring write and a read of the
+// same ring (at least 1: a group of one step is the sequential order)
+static int ff_min_distance(const FFScanArgs *a)
+{
+    int d = 1 << 30;
+    const auto least = [&d](int x) { d = x < d ? x : d; };
+    for (int i = 0; i < a->n_bv && i < FF_MAX_BV; ++i) least(a->bv_w[i]);
+    for (int i = 0; i < a->n_q && i < FF_MAX_Q; ++i) least(a->q_w[i]);
+    for (int i = 0; i < a->n_pb && i < FF_MAX_PB; ++i) {
+        least(a->pb_lag[i]);
+        least(a->pb_box[i]);
+    }
+    return d < 1 ? 1 : d;
+}
+
 extern "C" {
 
 // Each launcher returns cudaGetLastError() after the launch (0 = queued).
+
+// Queues ff_scan_kernel for the plan's box counts and group size.  Refused
+// (cudaErrorInvalidValue) unless `threads` is FF_SCAN_WARPS * 32,
+// `smem_bytes` holds the barriers, stages and rings, 1 <= B <= 2^25 (32-bit
+// offsets within a tile), the counts and group size are instantiated
+// below, and the group is no longer than the least box width and lag.
 int nfclab_ff_scan(const FFScanArgs *a, int device, int threads,
                    int64_t smem_bytes, void *stream)
 {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(ff_scan_kernel,
+    const int64_t need = 16LL * FF_STAGES
+        + 128LL * ((int64_t)FF_STAGES * FF_TILE_ROWS + a->ring_rows);
+    const FFScanKernel k = ff_scan_pick(a->group, a->n_bv, a->n_q, a->n_pb);
+    if (k == nullptr || threads != FF_SCAN_WARPS * 32 || smem_bytes < need
+        || a->B < 1 || a->B > (1LL << 25)
+        || a->group > ff_min_distance(a))
+        return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute((const void *)k,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    const int64_t blocks = (a->B + threads - 1) / threads;
-    ff_scan_kernel<<<(unsigned)blocks, threads, (size_t)smem_bytes,
-                     (cudaStream_t)stream>>>(*a);
+    const int64_t blocks = (a->B + 31) / 32;
+    k<<<(unsigned)blocks, threads, (size_t)smem_bytes,
+        (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }
 

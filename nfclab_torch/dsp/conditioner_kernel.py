@@ -12,14 +12,16 @@ Any ``B >= 1`` and ``T >= 1``: the TPU's ``B % 1024`` and ``T % 256``
 came from its tiling.
 
 The hand-written CUDA kernel ``cond_scan_kernel`` (``nfclab_torch/csrc/
-conditioner.cu``) runs one thread per stream on time-major ``[T, B]``
-arrays.  ``condition_scan`` launches it for a CUDA tensor and runs the
+conditioner.cu``) runs one lane per stream on time-major ``[T, B]``
+arrays, its three independent chains on three warps, with an envelope
+test that takes no divide (``env_near`` mirrors it for the tests).  ``condition_scan`` launches it for a CUDA tensor and runs the
 plain PyTorch version ``condition_scan_plain`` (the same float32 operation
 order, ``nfclab/dsp/conditioner.py::_scan_fn``) for a CPU tensor.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .fused_frontend import _f32, _Kernel, _require_device
@@ -126,6 +128,28 @@ def _scan_plain_tm(value_tm, init, pt):
         return tuple(torch.empty(0, B, dtype=dt, device=value_tm.device)
                      for dt in _OUT_DTYPES)
     return tuple(torch.stack(o) for o in outs)
+
+
+# the midpoint between 0.05f and its float32 predecessor: 26843545 * 2^-29
+ENV_NEAR_MIDPOINT = 26843545.0 / 2.0 ** 29
+
+
+def env_near(v: np.ndarray, env: np.ndarray) -> np.ndarray:
+    """Mirror of the kernels' divide-free envelope test
+    (``csrc/condition_step.cuh::cond_env_near``) on float32 arrays: for
+    0 < env < inf, |v - env| (rounded as float32) <= m * env in float64,
+    which is exact; elsewhere the float32 quotient's own test.  Equal to
+    ``abs(v - env) / env < float32(0.05)`` everywhere."""
+    v = np.asarray(v, np.float32)
+    env = np.asarray(env, np.float32)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        ad = np.abs(v - env)
+        near = ad.astype(np.float64) <= ENV_NEAR_MIDPOINT * env.astype(
+            np.float64)
+        special = ~((env > 0) & (env < np.inf))
+        quotient = ad[special] / env[special]
+        near[special] = quotient < np.float32(0.05)
+    return near
 
 
 def _scan_cuda_tm(value_tm, init, pt):

@@ -14,9 +14,10 @@ one (``state_from_jax`` / ``state_to_jax``).
 Two hand-written CUDA kernels compute it (``nfclab_torch/csrc/
 fused_frontend.cu``):
 
-- ``fused_scan``: one thread per stream walks the chunk serially and
-  produces the conditioning outputs and the running box sums; its rings
-  live in shared memory.
+- ``fused_scan``: one lane per stream walks the chunk serially and
+  produces the conditioning outputs and the running box sums, the work
+  split over four warps of a block fed by a fifth that stages the samples
+  in shared memory, where the rings live too.
 - ``fused_mask``: one thread per (sample, stream) computes ``mod_depth``
   and ``detect_mask`` from the box and filtered channels at fixed lags, and
   advances the history sections of the state.

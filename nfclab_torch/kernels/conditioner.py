@@ -16,7 +16,10 @@ import torch
 
 from .fused import check, library
 
-THREADS = 32  # one warp per block: 1024 streams spread over 32 SMs
+# a block serves 32 streams with three warps, one per independent chain
+# (envelope + pulse, w1 -> filt -> mdev, avg)
+THREADS = 96
+MAX_STREAMS = 1 << 27  # 32-bit offsets reach a group of rows
 
 _p = ctypes.c_void_p
 _f = ctypes.c_float
@@ -42,8 +45,11 @@ def launch_scan(value_tm, init, outs, pt):
     value_tm: [T, B] f32; init: (env0, w10, mdev0, avg0, pulse0, clock0)
     [B] rows; outs: (env, w1, mdev, avg, filt, pulse) [T, B]; pt: the
     8-tuple of dsp.frontend._params_tuple."""
-    lib = library()
     T, B = value_tm.shape
+    if B > MAX_STREAMS:
+        raise ValueError(f"cond_scan_kernel takes at most {MAX_STREAMS} "
+                         f"streams a call, got {B}")
+    lib = library()
     a = CondScanArgs()
     a.value = value_tm.data_ptr()
     (a.env0, a.w10, a.mdev0, a.avg0, a.pulse0, a.clock0) = (

@@ -23,7 +23,14 @@ MAX_Q = 4
 MAX_PB = 8
 MAX_RATES = 4
 MAX_HIST = MAX_BV + 1
-SCAN_THREADS = 32   # one warp per block: the rings of 32 streams in smem
+# ff_scan_kernel: 32 streams per block, five warps (envelope, filter + q
+# boxes, product boxes, raw-value boxes, the producer that stages samples)
+SCAN_THREADS = 160
+SCAN_STAGES = 4       # staged sample tiles in flight
+SCAN_TILE_ROWS = 120  # samples per tile: a multiple of every group size
+SCAN_GROUPS = (6, 2, 1)              # instantiated ring-read group sizes
+SCAN_COUNTS = ((4, 2, 3), (3, 2, 3))  # instantiated (bv, q, product) counts
+SCAN_MAX_STREAMS = 1 << 25           # 32-bit offsets within a tile
 MASK_THREADS = 256
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
@@ -49,6 +56,7 @@ class FFScanArgs(ctypes.Structure):
         ("rp_ring", _i32 * MAX_PB),
         ("ring_off", _i32), ("ring_rows", _i32),
         ("hist_off", _i32), ("hist_rows", _i32), ("sums_off", _i32),
+        ("group", _i32),
     ]
 
 
@@ -85,11 +93,17 @@ class FFMaskArgs(ctypes.Structure):
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the argument
     types of every entry point."""
+    return bind(build())
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load a kernel library built from csrc/ and set the argument types
+    of every entry point."""
     from .conditioner import CondScanArgs
     from .fused_v2 import V2Args
     from .probes import CopyProbeArgs, ProbeArgs
 
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(path))
     lib.nfclab_ff_scan.argtypes = [
         ctypes.POINTER(FFScanArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_int64, ctypes.c_void_p,
@@ -151,12 +165,34 @@ def _limits(plan):
         raise ValueError(f"kernel plan exceeds the kernel's limits: {plan}")
 
 
+def scan_group(plan) -> int:
+    """Steps per ring-read group of ff_scan_kernel for a plan: the largest
+    instantiated size no longer than the least box width and lag (a ring
+    slot is then never read in the group that rewrites it)."""
+    least = min(*plan.bv_widths, *plan.q_widths,
+                *(min(lag, box) for lag, box in plan.pb))
+    return max(g for g in SCAN_GROUPS if g <= max(least, 1))
+
+
+def scan_smem(ring_rows: int) -> int:
+    """Shared memory of one ff_scan_kernel block: a full and an empty
+    mbarrier per stage, the staged tiles and the rings, 32 columns each."""
+    return 16 * SCAN_STAGES + 128 * (SCAN_STAGES * SCAN_TILE_ROWS + ring_rows)
+
+
 def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
                 pt, plan, lay):
     """Queue ff_scan_kernel on the current stream."""
     _limits(plan)
-    lib = library()
+    counts = (len(plan.bv_widths), len(plan.q_widths), len(plan.pb))
+    if counts not in SCAN_COUNTS:
+        raise ValueError(f"ff_scan_kernel is instantiated for (bv, q, product) "
+                         f"box counts {SCAN_COUNTS}, not {counts}")
     T, B = value_tm.shape
+    if B > SCAN_MAX_STREAMS:
+        raise ValueError(f"ff_scan_kernel takes at most {SCAN_MAX_STREAMS} "
+                         f"streams a call, got {B}")
+    lib = library()
     a = FFScanArgs()
     a.value, a.state_in, a.state_out, a.deps = (
         _ptr(value_tm), _ptr(state_in), _ptr(state_out), _ptr(deps))
@@ -181,11 +217,12 @@ def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
     a.ring_off, a.ring_rows = lay.ring_off, lay.ring_rows
     a.hist_off, a.hist_rows = lay.hist_off, lay.hist_rows
     a.sums_off = lay.sums_off
-    smem = lay.ring_rows * SCAN_THREADS * 4
+    a.group = scan_group(plan)
+    smem = scan_smem(lay.ring_rows)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"rings of {lay.ring_rows} rows need {smem} B of shared memory "
-            f"per block (limit {SMEM_LIMIT})"
+            f"rings of {lay.ring_rows} rows and {SCAN_STAGES} staged tiles "
+            f"need {smem} B of shared memory per block (limit {SMEM_LIMIT})"
         )
     stream = torch.cuda.current_stream(value_tm.device).cuda_stream
     check(lib, lib.nfclab_ff_scan(ctypes.byref(a), value_tm.device.index,

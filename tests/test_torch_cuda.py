@@ -194,3 +194,67 @@ def test_condition_jax_and_frontend_on_card(cuda):
         if k in ("envelope", "filtered", "deviation", "average",
                  "mod_depth") or v.dtype == torch.bool:
             assert _same(dev_out[k].cpu(), v), k
+
+
+def _boundary_carry(env0, x0, rate, seed):
+    from nfclab_torch.core.params import SignalParams
+
+    etu = SignalParams(rate).elementary_time_unit
+    rng = np.random.default_rng(seed)
+    b, dev = x0.shape[0], x0.device
+    return (env0, x0 * 10.0,
+            torch.from_numpy(rng.uniform(0, 1e-3, b).astype(np.float32)).to(dev),
+            x0.clone(),
+            torch.from_numpy(rng.integers(0, 20 * etu, b).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(0, 3 * etu, b).astype(
+                np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("rate", [RATE, 3_200_000])
+def test_scans_on_boundary_lanes_on_card(cuda, rate):
+    """cond_scan_kernel and ff_scan_kernel, whose envelope test takes no
+    divide, on 2**22 streams whose envelope test sits on its boundary
+    (v = env * (1 +- 0.05) moved by a few ulps, env from the subnormals to
+    3.4e38, special values): bit-exact against the plain versions, with
+    ragged shapes (B not a multiple of 32 or of 4, T below the group size
+    and not a multiple of the staged tile) at a clock base near the fold
+    modulus."""
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp.frontend import _params_tuple
+    from torch_synth import boundary_lanes
+
+    pt = _params_tuple(SignalParams(rate))
+    # the last case: positive envelopes, so the groups of 16 steps take the
+    # positive-envelope test alone
+    for i, (b, t, binades, specials) in enumerate((
+            ((1 << 22) + 5, 6, (-149, 128), True), (1, 29, (-149, 128), True),
+            (999, 37, (-149, 128), True), (1 << 20, 48, (-60, 90), False))):
+        env0, x = (torch.from_numpy(a).to(cuda)
+                   for a in boundary_lanes(b, t, i, binades, specials))
+        init = _boundary_carry(env0, x[:, 0], rate, seed=10 + i)
+        for a, w in zip(ck.condition_scan(x, *init, pt),
+                        ck.condition_scan_plain(x, *init, pt)):
+            assert _same(a, w), (b, t)
+    plan = ff.kernel_plan(rate)
+    mod = plan.fold_modulus
+    keep = ff._extra_names(plan)
+    gen = torch.Generator(device=cuda)
+    cases = [(1 << 18, 6, mod - 3)] * 16 + [(1000, 250, 0), (1001, 5, mod - 1)]
+    for i, (b, t, base) in enumerate(cases):
+        env0, x = (torch.from_numpy(a).to(cuda)
+                   for a in boundary_lanes(b, t, seed=20 + i))
+        carry = _boundary_carry(env0, x[:, 0], rate, seed=40 + i)
+        gen.manual_seed(i)
+        st = torch.rand(plan.nstate, b, generator=gen, device=cuda) * 1e-2
+        for row, val in enumerate(carry[:5]):
+            st[row] = val.float()
+        x_tm = x.t().contiguous()
+        got = ff.fused_scan(x_tm, st, base, pt, plan, keep)
+        want = ff._scan_plain(x_tm, st, base, pt, plan, keep)
+        assert _same(got[0], want[0]), (b, t, base)
+        assert _same(got[2], want[2]), (b, t, base)
+        for n in keep:
+            assert _same(got[1][n], want[1][n]), (n, b, t, base)

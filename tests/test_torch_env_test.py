@@ -1,0 +1,196 @@
+"""The divide-free envelope test of the scan kernels, on the CPU.
+
+``cond_scan_kernel`` and ``ff_scan_kernel`` decide whether the envelope
+follows the sample with ``|v - env| <= m * env`` in exact double arithmetic
+(``csrc/condition_step.cuh::cond_env_near``) instead of the correctly
+rounded quotient ``|v - env| / env < 0.05f``.  Its numpy mirror
+``conditioner_kernel.env_near`` is held here to the float32 quotient on
+float32 inputs: around the boundary in every binade of env from the
+subnormals to 3e38, at the special values, and on arbitrary pairs."""
+
+import numpy as np
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from nfclab_torch.dsp.conditioner_kernel import ENV_NEAR_MIDPOINT, env_near
+
+F32 = np.float32
+
+
+def quotient_test(v, env):
+    v = np.asarray(v, F32)
+    env = np.asarray(env, F32)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        return np.abs(v - env) / env < F32(0.05)
+
+
+def nudged(x, k):
+    """x moved by k float32 ulps (k may be negative)."""
+    x = np.asarray(x, F32)
+    toward = np.where(k >= 0, F32(np.inf), F32(-np.inf)).astype(F32)
+    for _ in range(abs(k)):
+        x = np.nextafter(x, toward)
+    return x
+
+
+def assert_same(v, env):
+    got = env_near(v, env)
+    want = quotient_test(v, env)
+    bad = np.flatnonzero(got != want)
+    assert bad.size == 0, (
+        f"{bad.size} mismatches, first v={v.flat[bad[0]]!r} "
+        f"env={env.flat[bad[0]]!r}")
+
+
+def test_midpoint_constant():
+    # 0.05f = 13421773 * 2^-28; m lies halfway to its even predecessor
+    assert float(F32(0.05)) == 13421773 / 2.0 ** 28
+    assert ENV_NEAR_MIDPOINT == (13421773 - 0.5) / 2.0 ** 28
+    below = np.nextafter(F32(0.05), F32(0))
+    assert int(below.view(np.uint32)) % 2 == 0
+
+
+# env binades from the subnormals (2^-149) to 2^127 (~1.7e38, and 3e38 in
+# the top case), each split so every case stays small
+BINADES = [(-149, -127), (-127, -100), (-100, -60), (-60, -30), (-30, -10),
+           (-10, 0), (0, 10), (10, 30), (30, 60), (60, 90), (90, 115),
+           (115, 128)]
+
+
+@pytest.mark.parametrize("side", [1, -1], ids=["above", "below"])
+@pytest.mark.parametrize("lo,hi", BINADES)
+def test_boundary_in_each_binade(lo, hi, side):
+    """v = env * (1 +- 0.05) moved by -3..3 ulps, and |d| itself at -3..3
+    ulps around m * env, for seeded env mantissas in [2^lo, 2^hi)."""
+    rng = np.random.default_rng((lo + 150) * 2 + (side > 0))
+    exps = rng.integers(lo, hi, 3000)
+    env = np.ldexp(rng.uniform(1.0, 2.0, exps.size), exps).astype(F32)
+    env = env[(env > 0) & np.isfinite(env)]
+    if hi == 128:
+        env = np.concatenate([env, np.array([3e38, 3.4e38], F32)])
+    target = ENV_NEAR_MIDPOINT * env.astype(np.float64)
+    for k in range(-3, 4):
+        with np.errstate(over="ignore"):
+            v = nudged((env.astype(np.float64) + side * target).astype(F32), k)
+            assert_same(v, env)
+            d = nudged(target.astype(F32), k)
+            assert_same((env.astype(np.float64) + side * d).astype(F32), env)
+
+
+SPECIAL_ENV = {
+    "zero": F32(0.0), "minus_zero": F32(-0.0), "negative": F32(-1.5),
+    "minus_tiny": F32(-1e-45), "minus_inf": F32(-np.inf),
+    "inf": F32(np.inf), "nan": F32(np.nan),
+}
+V_VALUES = np.array([0.0, -0.0, 1e-45, -1e-45, 1.0, -1.0, 1.5, -1.5, 3e38,
+                     -3e38, np.inf, -np.inf, np.nan], F32)
+
+
+@pytest.mark.parametrize("name", sorted(SPECIAL_ENV))
+def test_special_env(name):
+    env = np.full(V_VALUES.size, SPECIAL_ENV[name], F32)
+    assert_same(V_VALUES, env)
+
+
+@pytest.mark.parametrize("v", [np.inf, -np.inf, np.nan],
+                         ids=["inf", "minus_inf", "nan"])
+def test_special_v(v):
+    env = np.concatenate([np.array([1e-45, 1e-38, 1.0, 3e38], F32),
+                          np.array(list(SPECIAL_ENV.values()), F32)])
+    assert_same(np.full(env.size, v, F32), env)
+
+
+float32s = st.floats(width=32, allow_nan=True, allow_infinity=True,
+                     allow_subnormal=True)
+
+
+@settings(max_examples=2000, deadline=None)
+@given(v=float32s, env=float32s)
+def test_arbitrary_pairs(v, env):
+    assert_same(np.array([v], F32), np.array([env], F32))
+
+
+@settings(max_examples=1000, deadline=None)
+@given(env=st.floats(width=32, min_value=float(F32(1e-45)),
+                     max_value=float(F32(3.4e38))),
+       k=st.integers(-40, 40), side=st.sampled_from([1.0, -1.0]))
+def test_pairs_near_the_boundary(env, k, side):
+    e = F32(env)
+    with np.errstate(over="ignore"):
+        v = nudged(F32(float(e) * (1.0 + side * 0.05)), k)
+    assert_same(np.array([v], F32), np.array([e], F32))
+
+
+# cond_scan_kernel's per-group choice (csrc/conditioner.cu,
+# CondEnvChain::group): a group of GROUP steps takes cond_env_near_pos alone
+# when env provably stays positive and finite through it.  Mirrored here
+# and held to that claim under every sequence of decisions.
+GROUP = 16
+INT32_MAX = 2**31 - 1
+
+
+def group_positive(env, v, clock, etu, w0, w1):
+    """The kernel's choice per lane: env [n], v [n, GROUP], clock [n]
+    (int32); weights and etu scalars."""
+    small = (v <= F32(2.0**100)).all(axis=1)
+    positive = small & (v >= F32(2.0**-100)).all(axis=1)
+    nonneg = small & (v >= 0).all(axis=1)
+    w0, w1 = F32(w0), F32(w1)
+    weights_a = 0 <= w0 <= 1 and 2.0**-40 <= w1 <= 1
+    weights_b = 0.25 <= w0 <= 1 and 0 <= w1 <= 1
+    small_env = env <= F32(2.0**100)
+    a = weights_a & positive & (env > 0) & small_env
+    b = (weights_b & nonneg & (env >= F32(2.0**-60)) & small_env
+         & (clock >= etu) & (clock <= INT32_MAX - (GROUP - 1)))
+    return a | b
+
+
+WEIGHTS = {
+    # (enve_w0, enve_w1) of dsp.frontend._params_tuple at 0.5, 3.2, 10 and
+    # 40 MS/s, then the edges of both cases
+    "0.5MS/s": (0.0, 1.0), "3.2MS/s": (0.84375, 0.15625),
+    "10MS/s": (0.95, 0.050000012), "40MS/s": (0.9875, 0.012499988),
+    "a_low_w1": (0.0, 2.0**-40), "a_high": (1.0, 1.0),
+    "b_low_w0": (0.25, 0.0), "b_high": (1.0, 1.0),
+    "b_quarter_one": (0.25, 1.0), "neither": (0.2, 2.0**-41),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WEIGHTS))
+def test_group_choice_keeps_env_positive(name):
+    w0, w1 = (F32(w) for w in WEIGHTS[name])
+    etu = 94
+    rng = np.random.default_rng(sorted(WEIGHTS).index(name))
+    n = 20000
+    env = np.ldexp(rng.uniform(1, 2, n), rng.integers(-149, 110, n)).astype(F32)
+    env[:8] = [2.0**100, 2.0**-60, 2.0**-100, 1e-45, 0.0, -1.0, np.inf,
+               np.nan]
+    v = np.ldexp(rng.uniform(1, 2, (n, GROUP)),
+                 rng.integers(-110, 105, (n, GROUP))).astype(F32)
+    v[rng.random((n, GROUP)) < 0.1] = 0.0
+    v[rng.random((n, GROUP)) < 0.01] = -1e-3
+    v[:4] = [[2.0**100], [2.0**-100], [0.0], [2.0**100]]
+    clock = rng.choice(np.array([0, etu - 3, etu, 10**6, INT32_MAX - 15,
+                                 INT32_MAX - 14], np.int64), n)
+    chosen = group_positive(env, v, clock, etu, w0, w1)
+    if name == "neither":
+        assert not chosen.any()
+        return
+    assert chosen.sum() > n // 50
+    # the first lanes update at every step: the largest growth (env and v
+    # at 2^100) and the deepest decay (env at 2^-60, v at 0)
+    always = (np.arange(n) < 4)[chosen]
+    e, x, c = env[chosen], v[chosen], clock[chosen]
+    with np.errstate(over="ignore", under="ignore"):
+        for k in range(GROUP):
+            # any decision the test could make: update, hold, or a seed
+            # while the clock is below one ETU
+            pick = np.where(always, 0, rng.integers(0, 3, e.size))
+            ema = e * w0 + x[:, k] * w1
+            seeding = (c + k) < etu
+            e = np.where(pick == 0, ema,
+                         np.where((pick == 1) & seeding, x[:, k], e)
+                         ).astype(F32)
+            assert ((e > 0) & np.isfinite(e)).all(), (name, k)
+            assert_same(x[:, k], e)

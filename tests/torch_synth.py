@@ -147,3 +147,40 @@ def lane(tp: Template, n: int, seed: int):
     out += offset
     out += rng.standard_normal(n, dtype=np.float32) * np.float32(2e-4)
     return out, min(reps, n // len(tp.samples))
+
+
+# envelopes and samples at which the envelope test's result comes from
+# IEEE special cases: env <= 0, +inf, NaN; v = +-inf, NaN
+BOUNDARY_SPECIAL_ENV = (0.0, -0.0, -1.5, -1e-45, float("inf"), float("-inf"),
+                        float("nan"))
+BOUNDARY_SPECIAL_V = (float("inf"), float("-inf"), float("nan"))
+
+
+def boundary_lanes(b: int, t: int, seed: int = 0, binades=(-149, 128),
+                   specials: bool = True):
+    """(env0 [b], x [b, t]) f32 that put the envelope test |v - env| / env
+    < 0.05 on its boundary: env0 log-uniform over the binades (by default
+    the float32 range, from the subnormals to ~3.4e38), each lane's sample
+    v = env0 * (1 +- 0.05) moved by -4..4 ulps and held for the t steps (a
+    lane whose envelope does not follow stays on the boundary); with
+    specials, one lane in 32 takes a special envelope or sample instead."""
+    rng = np.random.default_rng(seed)
+    exps = rng.integers(*binades, b)
+    env = np.ldexp(rng.uniform(1.0, 2.0, b), exps).astype(np.float32)
+    side = rng.choice(np.array([1.0, -1.0]), b)
+    with np.errstate(over="ignore"):
+        v = (env.astype(np.float64) * (1.0 + side * 0.05)).astype(np.float32)
+    k = rng.integers(-4, 5, b)
+    for step in range(4):
+        up, down = k > step, k < -step
+        v[up] = np.nextafter(v[up], np.float32(np.inf))
+        v[down] = np.nextafter(v[down], np.float32(-np.inf))
+    special = np.flatnonzero(rng.integers(0, 32, b) == 0) if specials \
+        else np.zeros(0, np.int64)
+    half = special[: len(special) // 2]
+    env[half] = rng.choice(np.array(BOUNDARY_SPECIAL_ENV, np.float32),
+                           len(half))
+    rest = special[len(special) // 2 :]
+    v[rest] = rng.choice(np.array(BOUNDARY_SPECIAL_V, np.float32), len(rest))
+    x = np.repeat(v[:, None], t, axis=1)
+    return env, x
