@@ -105,6 +105,8 @@ V2_STREAMS, V2_CHUNK = 4096, 16384   # bench_v2's first v2 configuration
 BOUNDARY_STREAMS = 1 << 22  # streams of the boundary phase
 BOUNDARY_SLICE = 1 << 18    # fused_scan streams a call there (its state is
                             # nstate rows a stream: 2109 at 10 MS/s)
+BOUNDARY_V2 = 1 << 18       # v2_scan streams there (1285 state rows each)
+BOUNDARY_PROBE = (1 << 20) + 7  # serial_probe lanes there
 
 
 def log(*a):
@@ -475,6 +477,81 @@ def check_boundary(dev, rate, errs):
         f"{BOUNDARY_SLICE}, 1000 x 250, 1001 x 5, 64 x 121 misaligned")
 
 
+def check_boundary_experiments(dev, errs):
+    """The boundary phase for the two redesigned experiments/ scans, at
+    10 MS/s (their only rate), bit-exact against their plain versions.
+    v2_scan: state rows 0-4 crafted from boundary lanes (env0, w1, mdev,
+    avg, a float silence count up to twice its timeout), the rest random;
+    BOUNDARY_V2 + 3 x 13 steps at base 95 (the value and filtered rings
+    wrap inside the chunk; T below a group of 16 and not a multiple of 6),
+    1001 x 100 ending at the int32 guard, 33 x 5 from clock 0 (T < U,
+    seeding), 64 x 1200 at base 190 with every 4th lane 0 for 1050 steps
+    (past the silence timeout; the squared ring wraps), and BOUNDARY_V2 x
+    32 with positive envelopes and no special value.  serial_probe (zero
+    carry): lanes that seed on env0 for 100 steps and then take their
+    boundary sample, 2 groups x 999 lanes x 137 steps (a warp across two
+    groups, a ragged tail), 1 x 33 x 5 (T below a group), 1 x 2048 x 1200
+    with every 4th lane 0 for 1000 steps, and 1 x BOUNDARY_PROBE x 116 with
+    positive envelopes."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from torch_synth import boundary_lanes, probe_boundary_lanes
+
+    pt, _, _ = _params(RATE)
+    scan_rows = ~v2.mask_state_rows().to(dev)
+    top = 2**31 - 2 * v2.RBV_RING
+    gen = torch.Generator(device=dev)
+    everywhere = (-149, 128)
+    for i, (b, t, base, binades, specials, off) in enumerate((
+            (BOUNDARY_V2 + 3, 13, 95, everywhere, True, None),
+            (1001, 100, top - 100, everywhere, True, None),
+            (33, 5, 0, everywhere, True, None),
+            (64, 1200, 190, everywhere, True, (100, 1150)),
+            (BOUNDARY_V2, 32, 1000, (-60, 90), False, None))):
+        env0, x = boundary_lanes(b, t, 90 + i, binades, specials)
+        if off is not None:
+            x[::4, off[0] : off[1]] = 0.0
+        env0, x = torch.from_numpy(env0).to(dev), torch.from_numpy(x).to(dev)
+        carry = _boundary_state(env0, x[:, 0], RATE, seed=100 + i)
+        gen.manual_seed(110 + i)
+        st = torch.rand(v2.NSTATE, b, generator=gen, device=dev) * 1e-2
+        for row, val in zip(range(5), carry):
+            st[row] = val.float()
+        x_tm = x.t().contiguous()
+        out_k, so_k = v2.v2_scan(x_tm, st, base, pt)
+        out_p, so_p = v2._scan_plain(x_tm, st, base, pt)
+        what = f"boundary, {b} x {t}, base {base}"
+        _hold(errs, "fused_v2_scan", out_k[:-1], out_p[:-1], what)
+        _hold(errs, "fused_v2_scan", so_k[scan_rows], so_p[scan_rows], what)
+        del env0, x, carry, st, x_tm, out_k, so_k, out_p, so_p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"fused_v2_scan == plain (bit-exact) on boundary lanes: "
+        f"{BOUNDARY_V2 + 3} x 13 at base 95, 1001 x 100 at base {top - 100}, "
+        f"33 x 5, 64 x 1200 with zeros, {BOUNDARY_V2} x 32 positive")
+
+    for i, (g, lanes, t, binades, specials, off) in enumerate((
+            (2, 999, 137, everywhere, True, None),
+            (1, 33, 5, everywhere, True, None),
+            (1, 2048, 1200, everywhere, True, (150, 1150)),
+            (1, BOUNDARY_PROBE, 116, (-60, 90), False, None))):
+        x = probe_boundary_lanes(g * lanes, t, seed=120 + i, binades=binades,
+                                 specials=specials, off=off)
+        v = torch.from_numpy(np.ascontiguousarray(
+            x.reshape(t, g, lanes).transpose(1, 0, 2))).to(dev)
+        what = f"boundary, {g} x {t} x {lanes}"
+        for a, w in zip(psf.serial_probe(v), psf.serial_probe_plain(v)):
+            _hold(errs, "serial_probe", a, w, what)
+        del x, v
+    torch.cuda.synchronize()
+    log(f"serial_probe == plain (bit-exact) on boundary lanes: 2 x 137 x "
+        f"999, 1 x 5 x 33, 1 x 1200 x 2048 with zeros, 1 x 116 x "
+        f"{BOUNDARY_PROBE} positive")
+
+
 def check_condition_main_shape(dev, caps, errs):
     """cond_scan_kernel against its plain version at the main path's
     shape, on its captures: one [65536, 1024] chunk (the second of each
@@ -637,19 +714,52 @@ def check_main_shape(dev, caps, errs):
     return t
 
 
-def log_scan_resources(kbuild):
-    """The ptxas register and spill lines of the two scan kernels (every
-    instantiation of ff_scan_kernel) and ff_scan_kernel's shared memory per
-    block at 10 and 3.2 MS/s (cond_scan_kernel uses none)."""
+SCANS = ("ff_scan_kernel", "cond_scan_kernel", "v2_scan_kernel",
+         "serial_probe_kernel")
+
+
+def scan_resources(kbuild) -> dict:
+    """Registers, spill bytes and static shared memory of each serial scan
+    kernel, from the ptxas lines of the last build (the largest over the
+    instantiations of a template)."""
+    import re
+
+    res, entry = {}, None
+    for ln in kbuild.ptxas_lines():
+        if "Compiling entry function" in ln:
+            entry = next((k for k in SCANS if k in ln.split("'")[1]), None)
+            continue
+        if entry is None:
+            continue
+        r = res.setdefault(entry, {"registers": 0, "spill_bytes": 0,
+                                   "static_smem": 0})
+        if m := re.search(r"Used (\d+) registers", ln):
+            r["registers"] = max(r["registers"], int(m.group(1)))
+        if m := re.search(r"(\d+) bytes smem", ln):
+            r["static_smem"] = max(r["static_smem"], int(m.group(1)))
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln):
+            r["spill_bytes"] = max(r["spill_bytes"], int(m.group(1))
+                                   + int(m.group(2)))
+    return res
+
+
+def log_scan_resources(kbuild) -> dict:
+    """The ptxas register and spill lines of the serial scans (every
+    instantiation of ff_scan_kernel) and their shared memory per block
+    (ff_scan_kernel at 10 and 3.2 MS/s); returns scan_resources with each
+    scan's shared memory per block and threads per block."""
     from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.kernels import conditioner as kc
     from nfclab_torch.kernels import fused as kf
+    from nfclab_torch.kernels import fused_v2 as kv
+    from nfclab_torch.kernels import probes as kp
 
     entry = None
     for ln in kbuild.ptxas_lines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-        elif entry and ("ff_scan_kernel" in entry
-                        or "cond_scan_kernel" in entry) and (
+        elif entry and any(k in entry for k in SCANS) and (
                 "Used" in ln or "spill" in ln):
             log(f"  {entry}: {ln.split(':', 1)[-1].strip()}")
     for rate in (RATE, 3_200_000):
@@ -657,6 +767,22 @@ def log_scan_resources(kbuild):
         log(f"  ff_scan_kernel at {rate} Hz: group {kf.scan_group(plan)}, "
             f"{kf.scan_smem(ff._layout(plan).ring_rows)} B of shared memory "
             f"per block of {kf.SCAN_THREADS} threads")
+    res = scan_resources(kbuild)
+    dyn = {"ff_scan_kernel": kf.scan_smem(ff._layout(ff.kernel_plan(RATE))
+                                          .ring_rows),
+           "cond_scan_kernel": 0, "v2_scan_kernel": kv.scan_smem(),
+           "serial_probe_kernel": 0}
+    threads = {"ff_scan_kernel": kf.SCAN_THREADS,
+               "cond_scan_kernel": kc.THREADS,
+               "v2_scan_kernel": kv.SCAN_THREADS,
+               "serial_probe_kernel": kp.SERIAL_THREADS}
+    for k in SCANS:
+        r = res.setdefault(k, {"registers": 0, "spill_bytes": 0,
+                               "static_smem": 0})
+        r["smem_per_block"] = r.pop("static_smem") + dyn[k]
+        r["threads_per_block"] = threads[k]
+    log(f"  scan resources at {RATE} Hz: {json.dumps(res)}")
+    return res
 
 
 def _bound(nbytes, ops):
@@ -1200,6 +1326,7 @@ def run_experiments(dev, errs, tpls):
             _hold(errs, name, a, b, f"{tuple(xp.shape)}")
         n = xp.numel()
         kt[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "ns_per_step": ms * 1e6 / psf.T_PROBE,
                     "bound": _bound(24 * n, PROBE_OPS * n)}
         del xp, got, want
         torch.cuda.empty_cache()
@@ -1225,7 +1352,8 @@ def run_experiments(dev, errs, tpls):
     for key in ("scan", "mask"):
         kt[f"fused_v2_{key}"] = {
             "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
-            "library_ms": None, "bound": t[f"{key}_bound"]}
+            "library_ms": None, "ns_per_step": t[f"{key}_ms"] * 1e6 / V2_CHUNK,
+            "bound": t[f"{key}_bound"]}
     torch.cuda.empty_cache()
     return kt, launches
 
@@ -1280,6 +1408,7 @@ def main(argv=None) -> int:
     for rate in (RATE, 3_200_000):
         check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
         check_boundary(dev, rate, errs)
+    check_boundary_experiments(dev, errs)
     check_experiment_kernels(dev, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
@@ -1296,7 +1425,7 @@ def main(argv=None) -> int:
     tk = check_main_shape(dev, caps, errs)
     tk.update(check_condition_main_shape(dev, caps, errs))
     log(f"times at {STREAMS} x 65536 (ms): {json.dumps(tk)}")
-    log_scan_resources(kbuild)
+    resources = log_scan_resources(kbuild)
 
     # 4. the main path at full width
     res, dt, launches, peak, steps = run_main_path(caps)
@@ -1336,7 +1465,9 @@ def main(argv=None) -> int:
                 "condition_scan": {
                     "ns_per_step": tk["cond_ns_per_step"],
                     "repair_ms": tk["cond_repair_ms"],
-                    "repair_ns_per_step": tk["cond_repair_ns_per_step"]}}
+                    "repair_ns_per_step": tk["cond_repair_ns_per_step"]},
+                "fused_v2_scan": resources["v2_scan_kernel"],
+                "serial_probe": resources["serial_probe_kernel"]}
     kernels = []
     for name, key, src, tpu, n in (
             ("fused_scan", "scan", SOURCE, TPU_KERNEL, launches["fused_scan"]),
@@ -1364,6 +1495,9 @@ def main(argv=None) -> int:
             "launches": elaunch[name], "max_abs_err": errs[name],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": k["library_ms"],
+            **({"ns_per_step": k["ns_per_step"]} if "ns_per_step" in k
+               else {}),
+            **per_step.get(name, {}),
         })
     log(json.dumps({"kernels": kernels}))
     log(card_line())

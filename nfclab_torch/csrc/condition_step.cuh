@@ -1,23 +1,34 @@
 // The float arithmetic of one step of the NFC conditioning chain
-// (NfcTech.cpp:39-68) and of mod_depth (NfcTech.cpp:71-74), shared by
-// ff_scan_kernel and ff_mask_kernel (fused_frontend.cu), cond_scan_kernel
-// (conditioner.cu), v2_scan_kernel (fused_v2.cu) and the conditioning
-// probes (probes.cu).  The envelope test comes in two forms with the same
-// result: ff_scan_kernel and cond_scan_kernel take cond_env_near and
-// cond_env_near_pos (no divide where env is positive and finite),
-// v2_scan_kernel and the probes the quotient cond_env_diff.
+// (NfcTech.cpp:39-68) and of mod_depth (NfcTech.cpp:71-74), and the chains
+// that run it serially over a stream, shared by every kernel that
+// conditions: ff_scan_kernel and ff_mask_kernel (fused_frontend.cu),
+// cond_scan_kernel (conditioner.cu), v2_scan_kernel (fused_v2.cu) and the
+// conditioning probes (probes.cu).
+//
+// The envelope test comes in two forms with the same result: the
+// quotient cond_env_diff(v, env) < 0.05f, which only pair_probe_kernel
+// still takes (its speculative quotients are what it measures), and
+// cond_env_near / cond_env_near_pos, no divide where env is positive and
+// finite, which every other kernel takes.  CondEnvChain::group lets a warp
+// decide once per group of COND_UNROLL steps that env stays positive and
+// finite, so that the group runs cond_env_near_pos alone, with no branch.
 //
 // The contract is bit-exactness with the C++ oracle, which is built with
 // -ffp-contract=off: every operation is an explicit round-to-nearest
 // intrinsic, so no FMA contraction or approximate division can creep in
-// whatever the build flags.  The counter logic (silence timeout, seeding)
-// stays with each kernel: the fused kernel keeps a float silence counter
-// and an absolute clock base, the conditioning kernel an int32 pulse count
-// and a per-stream int32 clock.
+// whatever the build flags.  The silence counter and the clock differ
+// between kernels, so the envelope chain takes them as a parameter:
+// CondPulseCounter (the conditioning kernel: an int32 pulse count and a
+// per-stream int32 clock) or CondFloatCounter (the fused v2 scan and the
+// probes: an integer-valued float count, and an int32 clock that is the
+// absolute clock in v2 and counts from 0 in every probe call).
 
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
+
+#define COND_UNROLL 16   // steps of a group: samples loaded ahead, one vote
 
 // |v - env| / env: the envelope follows v while this is below 0.05
 __device__ __forceinline__ float cond_env_diff(float v, float env)
@@ -70,12 +81,282 @@ __device__ __forceinline__ float cond_iir(float v, float w1, float a,
     return w0;
 }
 
-// (env - max(0, min(v, env))) / env, with NaN-propagating min and max
+// env - max(0, min(v, env)), with NaN-propagating min and max
 // (jnp.minimum / jnp.maximum and torch.minimum / clamp semantics)
-__device__ __forceinline__ float cond_mod_depth(float v, float env)
+__device__ __forceinline__ float cond_mod_depth_num(float v, float env)
 {
     float c = (isnan(v) || isnan(env)) ? __int_as_float(0x7fc00000)
                                        : fminf(v, env);
     c = isnan(c) ? c : fmaxf(c, 0.0f);
-    return __fdiv_rn(__fsub_rn(env, c), env);
+    return __fsub_rn(env, c);
+}
+
+// mod_depth = (env - max(0, min(v, env))) / env
+__device__ __forceinline__ float cond_mod_depth(float v, float env)
+{
+    return __fdiv_rn(cond_mod_depth_num(v, env), env);
+}
+
+// cond_mod_depth, bit for bit, with its most common special case taken
+// apart: where the sample is at or above a positive envelope the
+// numerator is +0 and so is the quotient, which this returns without
+// dividing, because a zero numerator sends the correctly rounded divide
+// down its slow path, a branch that splits the warp on about half of the
+// steps of a magnitude capture.  Every other input divides as before.
+__device__ __forceinline__ float cond_mod_depth_split(float v, float env)
+{
+    const float num = cond_mod_depth_num(v, env);
+    const bool zero = (num == 0.0f) & (env > 0.0f);
+    const float q = __fdiv_rn(zero ? env : num, env);
+    return zero ? 0.0f : q;
+}
+
+// ---------------------------------------------------------------------------
+// The silence counter and the clock of the envelope chain (NfcTech.cpp:
+// 39-53): each step counts, an update resets the count, a step that does
+// not update takes v while the clock is below one ETU, and the count
+// forces an update once it passes the timeout.
+
+// int32 pulse count and per-stream int32 clock, wrapping like the TPU
+// kernel's int32 arithmetic
+struct CondPulseCounter {
+    uint32_t pulse, clock;
+    int32_t etu, silence;
+
+    __device__ __forceinline__ void tick() { pulse += 1u; }
+    __device__ __forceinline__ bool seeding() const
+    {
+        return (int32_t)clock < etu;
+    }
+    __device__ __forceinline__ bool expired() const
+    {
+        return (int32_t)pulse > silence;
+    }
+    __device__ __forceinline__ void settle(bool update)
+    {
+        pulse = update ? 0u : pulse;
+        clock += 1u;
+    }
+    // no step of the group starting here seeds, and the clock does not
+    // wrap inside it
+    __device__ __forceinline__ bool past_seeding() const
+    {
+        const int32_t c = (int32_t)clock;
+        return (c >= etu) & (c <= INT32_MAX - (COND_UNROLL - 1));
+    }
+};
+
+// an integer-valued float count (exact far beyond the timeout; at 2^24
+// it stops counting, still above it) and an int32 clock
+struct CondFloatCounter {
+    float pcount, silence;
+    uint32_t clock;
+    int32_t etu;
+
+    __device__ __forceinline__ void tick()
+    {
+        pcount = __fadd_rn(pcount, 1.0f);
+    }
+    __device__ __forceinline__ bool seeding() const
+    {
+        return (int32_t)clock < etu;
+    }
+    __device__ __forceinline__ bool expired() const
+    {
+        return pcount > silence;
+    }
+    __device__ __forceinline__ void settle(bool update)
+    {
+        pcount = update ? 0.0f : pcount;
+        clock += 1u;
+    }
+    __device__ __forceinline__ bool past_seeding() const
+    {
+        const int32_t c = (int32_t)clock;
+        return (c >= etu) & (c <= INT32_MAX - (COND_UNROLL - 1));
+    }
+};
+
+// ---------------------------------------------------------------------------
+// The three independent chains of a step, each run by its own warp.  A
+// chain's outputs go through a sink, which receives k, the step's index in
+// its group (a constant once the group's loop is unrolled), and moves on
+// by n elements at advance(n); done() follows the ragged tail.
+
+// the envelope and its silence counter (NfcTech.cpp:39-53)
+template <class Counter, class Sink>
+struct CondEnvChain {
+    float env;
+    Counter cnt;
+    float w0, w1;
+    bool weights_a, weights_b;  // the weights of group's cases (a), (b)
+    Sink sink;
+
+    __device__ __forceinline__ void set_weights(float ew0, float ew1)
+    {
+        w0 = ew0;
+        w1 = ew1;
+        weights_a = ew0 >= 0.0f && ew0 <= 1.0f && ew1 >= 0x1p-40f
+            && ew1 <= 1.0f;
+        weights_b = ew0 >= 0.25f && ew0 <= 1.0f && ew1 >= 0.0f
+            && ew1 <= 1.0f;
+    }
+
+    // Pos: env is known to be positive and finite (see group), so the
+    // test is cond_env_near_pos alone.  The update EMA and the seed-or-hold
+    // value do not wait for the test; the test picks between them.
+    template <bool Pos>
+    __device__ __forceinline__ void step(float v, int k)
+    {
+        cnt.tick();
+        const float ema = cond_ema(env, w0, v, w1);
+        const float other = cnt.seeding() ? v : env;
+        const bool near = Pos ? cond_env_near_pos(v, env) : cond_env_near(v, env);
+        const bool update = near || cnt.expired();
+        env = update ? ema : other;
+        cnt.settle(update);
+        sink.put(k, env, cnt);
+    }
+    __device__ __forceinline__ void step(float v, int k) { step<false>(v, k); }
+
+    // A group takes the Pos steps when, on every lane of the warp, env
+    // stays positive and finite through the group's COND_UNROLL (16)
+    // steps.  Two cases show it, each with env at most 2^100 and the
+    // group's samples at most 2^100, so that an update, at most
+    // 2 (1 + 2^-23) times the larger of env and v, keeps env below 2^117:
+    //   (a) 0 <= w0 <= 1, 2^-40 <= w1 <= 1, env > 0 and every sample at
+    //       least 2^-100: an update is at least v * w1 >= 2^-140 > 0, a
+    //       seed is v;
+    //   (b) 1/4 <= w0 <= 1, 0 <= w1 <= 1, env >= 2^-60, every sample at
+    //       least 0 and no seed in the group: an update is at least
+    //       env * w0 >= env / 4, above 2^-93 after 16 steps.
+    // Neither case reads the silence count: whatever forces an update,
+    // an update, a hold and a seed are the only outcomes, so the cases
+    // hold for the int32 pulse and the float count alike.  (b) needs the
+    // clock at least ETU at the group's first step and no int32 wrap
+    // inside the group (Counter::past_seeding), with the per-stream clock,
+    // the absolute clock and the call-local clock alike.  Magnitude
+    // captures meet (b) after the first ETU and (a) wherever the field is
+    // on.  Any other group (a negative sample, a special value) takes
+    // cond_env_near with its rarely taken divide.  `pass` votes yes for a
+    // lane past the last stream, whose steps store nothing.
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL],
+                                          bool pass = false)
+    {
+        bool positive = true, nonneg = true;
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k) {
+            const bool small = v[k] <= 0x1p100f;
+            positive &= small & (v[k] >= 0x1p-100f);
+            nonneg &= small & (v[k] >= 0.0f);
+        }
+        const bool small_env = env <= 0x1p100f;
+        const bool a = weights_a & positive & (env > 0.0f) & small_env;
+        const bool b = weights_b & nonneg & (env >= 0x1p-60f) & small_env
+                       & cnt.past_seeding();
+        if (__all_sync(__activemask(), a | b | pass)) {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; ++k) step<true>(v[k], k);
+        } else {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; ++k) step<false>(v[k], k);
+        }
+    }
+    __device__ __forceinline__ void advance(size_t n) { sink.advance(n); }
+    __device__ __forceinline__ void done(int rem) { sink.done(rem); }
+};
+
+// IIR DC removal (NfcTech.cpp:56-62) and the deviation EMA (:65-66); the
+// w1 output only where the kernel has one (W1)
+template <bool W1>
+struct CondFiltChain {
+    float w1, mdev;
+    float a, w0m, w1m;
+    uint32_t B;  // row stride of the outputs
+    float *__restrict__ out_w1;
+    float *__restrict__ out_filt;
+    float *__restrict__ out_mdev;
+
+    __device__ __forceinline__ void step(float v, int k)
+    {
+        const uint32_t o = (uint32_t)k * B;
+        float filt;
+        w1 = cond_iir(v, w1, a, &filt);
+        mdev = cond_ema(mdev, w0m, fabsf(filt), w1m);
+        if (W1) out_w1[o] = w1;
+        out_filt[o] = filt;
+        out_mdev[o] = mdev;
+    }
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL])
+    {
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k) step(v[k], k);
+    }
+    __device__ __forceinline__ void advance(size_t n)
+    {
+        if (W1) out_w1 += n;
+        out_filt += n;
+        out_mdev += n;
+    }
+    __device__ __forceinline__ void done(int) {}
+};
+
+// the average EMA (NfcTech.cpp:67-68)
+struct CondAvgChain {
+    float avg;
+    float w0, w1;
+    uint32_t B;
+    float *__restrict__ out_avg;
+
+    __device__ __forceinline__ void step(float v, int k)
+    {
+        avg = cond_ema(avg, w0, v, w1);
+        out_avg[(uint32_t)k * B] = avg;
+    }
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL])
+    {
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k) step(v[k], k);
+    }
+    __device__ __forceinline__ void advance(size_t n) { out_avg += n; }
+    __device__ __forceinline__ void done(int) {}
+};
+
+// One chain over the T samples of one stream: vp points at the stream's
+// first sample, B is the row stride.  Groups of COND_UNROLL steps (the
+// chain's group), the ragged tail one step at a time; the next group's
+// samples are in flight while this one is computed.  Every access is a
+// 32-bit offset from a pointer moved once a group.
+template <class Chain>
+__device__ __forceinline__ void cond_run(Chain &c, const float *__restrict__ vp,
+                                         uint32_t B, int64_t T)
+{
+    const int64_t groups = T / COND_UNROLL;
+    const int rem = (int)(T - groups * COND_UNROLL);
+    const size_t stride = (size_t)COND_UNROLL * B;
+    float cur[COND_UNROLL];
+#pragma unroll
+    for (int k = 0; k < COND_UNROLL; ++k)
+        cur[k] = (groups > 0 || k < rem) ? vp[(uint32_t)k * B] : 0.0f;
+    for (int64_t g = 0; g < groups; ++g) {
+        const float *__restrict__ np = vp + stride;
+        float nxt[COND_UNROLL];
+        if (g + 1 < groups) {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; ++k) nxt[k] = np[(uint32_t)k * B];
+        } else {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; ++k)
+                nxt[k] = k < rem ? np[(uint32_t)k * B] : 0.0f;
+        }
+        c.group(cur);
+        c.advance(stride);
+        vp = np;
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k) cur[k] = nxt[k];
+    }
+#pragma unroll
+    for (int k = 0; k < COND_UNROLL; ++k)
+        if (k < rem) c.step(cur[k], k);
+    c.done(rem);
 }

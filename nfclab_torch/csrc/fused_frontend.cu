@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include "condition_step.cuh"
+#include "smem_stage.cuh"
 
 #define FF_MAX_BV 8
 #define FF_MAX_Q 4
@@ -175,56 +176,6 @@ struct FFMaskArgs {
 #define FF_STAGES 4
 #define FF_TILE_ROWS 120  // a multiple of every group size (1, 2, 6)
 
-__device__ __forceinline__ uint32_t ff_saddr(const void *p)
-{
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ff_bar_init(uint64_t *bar, uint32_t count)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(ff_saddr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void ff_bar_arrive(uint64_t *bar)
-{
-    asm volatile("{\n\t.reg .b64 st;\n\t"
-                 "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}"
-                 :: "r"(ff_saddr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void ff_bar_wait(uint64_t *bar, uint32_t parity)
-{
-    uint32_t done;
-    do {
-        asm volatile("{\n\t.reg .pred p;\n\t"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                     "selp.u32 %0, 1, 0, p;\n\t}"
-                     : "=r"(done) : "r"(ff_saddr(bar)), "r"(parity)
-                     : "memory");
-    } while (!done);
-}
-
-__device__ __forceinline__ void ff_copy16(float *dst, const float *src)
-{
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                 :: "r"(ff_saddr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void ff_copy4(float *dst, const float *src)
-{
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(ff_saddr(dst)), "l"(src) : "memory");
-}
-
-// the mbarrier counts one arrival of this thread once all of its earlier
-// cp.async copies have landed
-__device__ __forceinline__ void ff_copies_arrive(uint64_t *bar)
-{
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
-                 :: "r"(ff_saddr(bar)) : "memory");
-}
-
 // What a consumer warp shares with the others: the staged tiles.
 struct FFStages {
     float *tiles;         // [FF_STAGES][FF_TILE_ROWS][32]
@@ -241,7 +192,7 @@ __device__ __forceinline__ void ff_consume(Role &role, const FFStages &st,
     const int ntiles = (int)((T + FF_TILE_ROWS - 1) / FF_TILE_ROWS);
     for (int i = 0; i < ntiles; ++i) {
         const int s = i % FF_STAGES;
-        ff_bar_wait(st.full + s, (uint32_t)(i / FF_STAGES) & 1u);
+        mbar_wait(st.full + s, (uint32_t)(i / FF_STAGES) & 1u);
         const float *sv = st.tiles + s * (FF_TILE_ROWS * 32) + lane;
         const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
         const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
@@ -251,7 +202,7 @@ __device__ __forceinline__ void ff_consume(Role &role, const FFStages &st,
         for (; r + U <= n; r += U) role.template steps<U>(sv, r, t0 + r);
         for (; r < n; ++r) role.template steps<1>(sv, r, t0 + r);
         __syncwarp();
-        if (lane == 0) ff_bar_arrive(st.empty + s);
+        if (lane == 0) mbar_arrive(st.empty + s);
     }
 }
 
@@ -492,7 +443,7 @@ __device__ __forceinline__ void ff_produce(const FFScanArgs &a,
     for (int i = 0; i < ntiles; ++i) {
         const int s = i % FF_STAGES;
         if (i >= FF_STAGES)
-            ff_bar_wait(st.empty + s, (uint32_t)(i / FF_STAGES - 1) & 1u);
+            mbar_wait(st.empty + s, (uint32_t)(i / FF_STAGES - 1) & 1u);
         const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
         const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
         float *dst = st.tiles + s * (FF_TILE_ROWS * 32);
@@ -501,13 +452,13 @@ __device__ __forceinline__ void ff_produce(const FFScanArgs &a,
             for (int c = lane; c < n * 8; c += 32) {
                 const int r = c >> 3, col = (c & 7) * 4;
                 if (b0 + col < B)
-                    ff_copy16(dst + r * 32 + col, src + (int64_t)r * B + col);
+                    cp_async16(dst + r * 32 + col, src + (int64_t)r * B + col);
             }
         } else if (b0 + lane < B) {
             for (int r = 0; r < n; ++r)
-                ff_copy4(dst + r * 32 + lane, src + (int64_t)r * B + lane);
+                cp_async4(dst + r * 32 + lane, src + (int64_t)r * B + lane);
         }
-        ff_copies_arrive(st.full + s);
+        cp_async_arrive(st.full + s);
     }
     const int64_t b = b0 + lane;
     if (b < B) {
@@ -545,8 +496,8 @@ ff_scan_kernel(const FFScanArgs a)
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < FF_STAGES; ++s) {
-            ff_bar_init(st.full + s, 32);
-            ff_bar_init(st.empty + s, FF_CONSUMERS);
+            mbar_init(st.full + s, 32);
+            mbar_init(st.empty + s, FF_CONSUMERS);
         }
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }

@@ -15,11 +15,13 @@
 //
 // Two kernels, called in order for every chunk of T samples:
 //
-//   v2_scan_kernel  one thread per stream, serial over the chunk: the
-//                   conditioning chain, mod_depth and the nine box sums.
-//                   The value, filtered, squared and product rings (440
-//                   rows) live in shared memory, one column per thread;
-//                   carry and sums in registers.
+//   v2_scan_kernel  serial over the chunk, 32 streams per block, one lane
+//                   each, the work split over six warps (described above
+//                   the kernel): the conditioning chain, mod_depth and the
+//                   nine box sums.  Samples are staged in shared memory;
+//                   the value, filtered, squared and product rings live
+//                   there too, rotated to the chunk; carry and sums in
+//                   registers.
 //   v2_mask_kernel  one thread per (row, stream): detect_mask at every
 //                   sample from the box and filtered channels at fixed
 //                   lags, and the state rows the Pallas kernel's mask
@@ -29,14 +31,37 @@
 //                   rf, rb and rbv rings, at the slot of their absolute
 //                   clock, exactly where the Pallas kernel reads them.
 //
-// What bounds it on this card: the function moves 64 bytes per sample (4
-// in, 60 out across the 15 outputs), 1.3 ms per 4096 x 16384 samples at
-// 3.35 TB/s, and does ~90 float operations per sample, far below the f32
-// peak; on paper it is memory-bound.  In fact the scan is latency-bound: one stream is one
-// thread walking dependent steps, each with nine shared-memory ring reads
-// and sixteen global stores.  Moving the mask out of the loop keeps the
-// 826 rows of rb/rbv rings (3.3 KB per stream, 106 KB per warp) out of
-// shared memory, so a warp's rings fit in 56 KB; the mask kernel is
+// What bounds the scan on this card: it moves 60 bytes per sample (4 in,
+// 56 out across 14 channels), 1.21 ms per 4096 x 16384 samples at
+// 3.35 TB/s, and does ~50 float operations per sample, far below the f32
+// peak: it is bound by bytes, once a step is short enough.  At 4096
+// streams it is 128 blocks on 128 of the 132 SMs.  What the design does
+// about the step:
+//   - No global load on a step's path: a producer warp stages the samples
+//     of the block's 32 streams, V2_TILE_ROWS rows at a time, into
+//     V2_STAGES shared stages with cp.async behind mbarriers; every
+//     pointer is __restrict__.
+//   - No modulo in a step: the rings sit in shared memory rotated to the
+//     chunk, each in a power-of-two ring at least its state size, so a
+//     slot is a mask of the chunk row; the state rings (slot t % R) are
+//     rotated in and out once per call.
+//   - Ring reads ahead of ring writes in groups of 6, the least read
+//     distance (the product box of 6).
+//   - Warp specialisation: envelope; filter + mdev/avg + q boxes; product
+//     boxes (recomputing the filter to the same bits); raw-value boxes;
+//     mod_depth; the producer.  Each owns its outputs and state rows.
+//   - The envelope test has no divide, and no branch in a group that the
+//     warp vote (CondEnvChain::group) finds positive and finite.
+//   - mod_depth's divide, which feeds nothing back, runs on its own warp
+//     from the staged sample and the envelope the envelope warp writes
+//     into the stage's env tile (an mbarrier per stage), and skips the
+//     divide where the numerator is +0 (cond_mod_depth_split), which
+//     would otherwise send it down its slow path on about half the steps.
+// What still bounds it: its stores.  On an H100 (PERF.md) a step takes
+// ~108 ns, ~1.78 ms per 4096 x 16384 chunk, ~2.4 TB/s of the ~2.7 TB/s
+// the copy probe reaches; without its per-step stores it takes ~69 ns.
+// Moving the mask out of the loop keeps the 826 rows of rb/rbv rings
+// (3.3 KB per stream) out of shared memory; the mask kernel is
 // time-parallel and reads its lags from L2.
 //
 // Numerics: bit-exact with the plain PyTorch version (fused_v2.py of the
@@ -52,6 +77,7 @@
 #include <stdint.h>
 
 #include "condition_step.cuh"
+#include "smem_stage.cuh"
 
 namespace {
 
@@ -74,9 +100,6 @@ constexpr int S_RBV = S_RB + RB_TOTAL;
 constexpr int S_SUMS = S_RBV + RBV_RING;
 constexpr int NSTATE = S_SUMS + N_SUMS;
 static_assert(NSTATE == 1285, "state layout of experiments/fused_v2.py");
-
-// the scan's shared-memory rings: rv, rf, rq, rp0-2
-constexpr int SCAN_RING_ROWS = S_RB - S_RV;
 
 // output rows, in OUTPUT_NAMES order
 enum {
@@ -111,112 +134,584 @@ struct V2Args {
 
 }  // extern "C"
 
-__global__ void v2_scan_kernel(const V2Args a)
+// ---------------------------------------------------------------------------
+// v2_scan_kernel: the serial phase, warp-specialised (the design of
+// ff_scan_kernel on v2's state layout)
+//
+// Block of V2_SCAN_WARPS warps for 32 streams (lane = stream).  Warp 5
+// stages [V2_TILE_ROWS, 32] sample tiles into V2_STAGES shared stages with
+// cp.async, each behind a "full" mbarrier (the copies landed) and an
+// "empty" one (the five consumer warps are done with it).  The consumers
+// each read every staged sample and own disjoint outputs, state rows and
+// rings:
+//   warp 0  envelope + float silence counter (CondEnvChain, groups of
+//           COND_UNROLL behind the warp vote): envelope; env into the
+//           stage's env tile; rows 0, 4
+//   warp 1  w1 -> filt -> mdev, avg, the q boxes over the rq ring:
+//           filtered, deviation, average, q47, q189; rows 1-3, rq, q sums
+//   warp 2  its own w1 -> filt (the same operations, the same bits), the
+//           product boxes over the rf and rp rings: p24x6, p47x12, p94x24;
+//           rf, rp, p sums
+//   warp 3  the raw-value boxes over the rv ring: bv12..bv94; rv, bv sums
+//   warp 4  mod_depth from the staged samples and the env tile, behind the
+//           stage's "env" mbarrier (the envelope warp wrote the tile)
+//   warp 5  the producer
+// Rings sit in shared memory rotated to the chunk: a power-of-two ring of
+// P >= R slots holds the value of clock base + j at slot j & (P - 1), so
+// a step reads and writes with a mask and no modulo.  The state ring of R
+// slots (slot t % R holds clock t) is rotated in when the kernel starts
+// and back out when it ends, one modulo per slot, outside the steps.  A
+// consumer takes its steps in groups of U = 6: every ring read of the
+// group is issued before any ring write, which is the sequential order as
+// long as U <= the least read distance (the product box of 6) and every
+// distance is below its ring (a slot read at j - w keeps its value until
+// j - w + P).
+
+#define V2_SCAN_WARPS 6
+#define V2_CONSUMERS 5
+#define V2_STAGES 4
+#define V2_TILE_ROWS 96   // a multiple of the ring group (6) and of COND_UNROLL
+constexpr int V2_GROUP = 6;   // the least read distance: the box of p24x6
+
+// the shared rings: power-of-two sizes at least the state rings'
+constexpr int PV_RING = 128, PF_RING = 128, PQ_RING = 256;
+constexpr int PP_RING0 = RP_RING0, PP_RING1 = RP_RING1, PP_RING2 = RP_RING2;
+constexpr int V2_SHARED_RING_ROWS =
+    PV_RING + PF_RING + PQ_RING + PP_RING0 + PP_RING1 + PP_RING2;
+static_assert(PV_RING >= RV_RING && PF_RING >= RF_RING && PQ_RING >= RQ_RING,
+              "shared rings hold the state rings");
+static_assert((PP_RING0 & (PP_RING0 - 1)) == 0 && (PP_RING1 & (PP_RING1 - 1)) == 0
+              && (PP_RING2 & (PP_RING2 - 1)) == 0, "product rings are powers of two");
+static_assert(V2_TILE_ROWS % V2_GROUP == 0 && V2_TILE_ROWS % COND_UNROLL == 0,
+              "whole groups in a tile");
+// barriers (full, empty, env per stage, padded to 16 B), the sample and
+// env tiles, the rings
+constexpr int64_t V2_SCAN_SMEM =
+    ((3 * V2_STAGES * 8 + 15) / 16) * 16
+    + 128LL * (2 * V2_STAGES * V2_TILE_ROWS + V2_SHARED_RING_ROWS);
+
+// the box constants of the 10 MS/s set (fused_v2.py: BV_WIDTHS, Q_WIDTHS, PB)
+__device__ __forceinline__ constexpr int v2_bv_w(int i)
 {
-    extern __shared__ float rings[];  // [SCAN_RING_ROWS][blockDim.x]
-    const int nt = blockDim.x;
-    const int tid = threadIdx.x;
-    const int64_t B = a.B;
-    const int64_t b = (int64_t)blockIdx.x * nt + tid;
-    if (b >= B) return;  // no barrier below: each thread owns its column
+    return i == 0 ? 12 : i == 1 ? 24 : i == 2 ? 47 : 94;
+}
+__device__ __forceinline__ constexpr int v2_q_w(int i) { return i == 0 ? 47 : 189; }
+__device__ __forceinline__ constexpr int v2_pb_lag(int i)
+{
+    return i == 0 ? 24 : i == 1 ? 47 : 94;
+}
+__device__ __forceinline__ constexpr int v2_pb_box(int i)
+{
+    return i == 0 ? 6 : i == 1 ? 12 : 24;
+}
+__device__ __forceinline__ constexpr int v2_pb_ring(int i)
+{
+    return i == 0 ? PP_RING0 : i == 1 ? PP_RING1 : PP_RING2;
+}
 
-    const float *st_in = a.state_in;
-    float *st_out = a.state_out;
-    for (int r = 0; r < SCAN_RING_ROWS; ++r)
-        rings[r * nt + tid] = st_in[(int64_t)(S_RV + r) * B + b];
-    float *rv = rings;
-    float *rf = rings + (S_RF - S_RV) * nt;
-    float *rq = rings + (S_RQ - S_RV) * nt;
-    float *rp[3] = {rings + (S_RP0 - S_RV) * nt, rings + (S_RP1 - S_RV) * nt,
-                    rings + (S_RP2 - S_RV) * nt};
+// the slot of chunk row j (any int, negative before the chunk) in a
+// shared ring of p slots (a constant once inlined)
+__device__ __forceinline__ int v2_slot(int j, int p)
+{
+    return j & (p - 1);
+}
 
-    float env = st_in[0 * B + b];
-    float w1 = st_in[1 * B + b];
-    float mdev = st_in[2 * B + b];
-    float avg = st_in[3 * B + b];
-    float pcount = st_in[4 * B + b];
-    float s[N_SUMS];
+// what a consumer warp shares with the others
+struct V2Stages {
+    float *tiles;      // [V2_STAGES][V2_TILE_ROWS][32] samples
+    float *envs;       // [V2_STAGES][V2_TILE_ROWS][32] env, for warp 4
+    uint64_t *full;
+    uint64_t *empty;
+    uint64_t *env;     // the env tile of the stage is written
+};
+
+// Row pointer of one output channel ([T, B]) at stream b, moved to each
+// tile's first row; stores stream through L2.
+struct V2Out {
+    float *__restrict__ row0;
+    float *__restrict__ cur;
+    __device__ __forceinline__ void init(float *p, int64_t b)
+    {
+        row0 = p + b;
+        cur = row0;
+    }
+    __device__ __forceinline__ void tile(int64_t j0, uint32_t B)
+    {
+        cur = row0 + (size_t)j0 * B;
+    }
+    __device__ __forceinline__ void put(uint32_t o, float v)
+    {
+        __stcg(cur + o, v);
+    }
+};
+
+// Walk the chunk tile by tile: wait for the tile, run its rows through
+// the role in groups of U (the ragged rest one by one), hand the stage
+// back.  j counts the chunk's rows.
+template <int U, class Role>
+__device__ __forceinline__ void v2_consume(Role &role, const V2Stages &st,
+                                           int64_t T, int lane)
+{
+    const int ntiles = (int)((T + V2_TILE_ROWS - 1) / V2_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % V2_STAGES;
+        const uint32_t parity = (uint32_t)(i / V2_STAGES) & 1u;
+        mbar_wait(st.full + s, parity);
+        const float *sv = st.tiles + s * (V2_TILE_ROWS * 32) + lane;
+        const int j0 = i * V2_TILE_ROWS;
+        const int n = T - j0 < V2_TILE_ROWS ? (int)(T - j0) : V2_TILE_ROWS;
+        role.tile(j0, s, parity);
+        int r = 0;
+        for (; r + U <= n; r += U) role.template steps<U>(sv, r, j0 + r);
+        for (; r < n; ++r) role.template steps<1>(sv, r, j0 + r);
+        role.tile_done(s);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(st.empty + s);
+    }
+}
+
+// warp 0's sink: env to the envelope channel and to the stage's env tile
+struct V2EnvSink {
+    uint32_t B;
+    bool valid;
+    int r;             // the group's first row in the tile
+    float *etile;      // the stage's env tile, at this lane's column
+    V2Out out;
+
+    __device__ __forceinline__ void put(int k, float env,
+                                        const CondFloatCounter &)
+    {
+        etile[(r + k) * 32] = env;
+        if (valid) out.put((uint32_t)(r + k) * B, env);
+    }
+};
+
+// warp 0: the envelope (NfcTech.cpp:39-53), groups of COND_UNROLL steps
+// behind the warp vote; the clock is absolute, base + j
+struct V2EnvRole {
+    CondEnvChain<CondFloatCounter, V2EnvSink> c;
+    float *envs;          // the env tiles, at this lane's column
+    uint64_t *env_bar;
+
+    __device__ __forceinline__ void tile(int64_t j0, int s, uint32_t)
+    {
+        c.sink.out.tile(j0, c.sink.B);
+        c.sink.etile = envs + s * (V2_TILE_ROWS * 32);
+    }
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int)
+    {
+        c.sink.r = r;
+        if constexpr (N == COND_UNROLL) {
+            float v[COND_UNROLL];
 #pragma unroll
-    for (int i = 0; i < N_SUMS; ++i) s[i] = st_in[(int64_t)(S_SUMS + i) * B + b];
-
-    const int bv_w[4] = {12, 24, 47, 94};
-    const int q_w[2] = {47, 189};
-    const int pb_lag[3] = {24, 47, 94};
-    const int pb_box[3] = {6, 12, 24};
-    const int rp_ring[3] = {RP_RING0, RP_RING1, RP_RING2};
-    const int64_t TB = a.T * B;
-    float *out = a.out;
-
-    for (int64_t j = 0; j < a.T; ++j) {
-        const int t = a.base + (int)j;
-        const int64_t o = j * B + b;
-        const float v = a.value[o];
-
-        // conditioning (NfcTech.cpp:39-68); the silence counter is an
-        // integer-valued float
-        const float diff = cond_env_diff(v, env);
-        pcount = __fadd_rn(pcount, 1.0f);
-        const bool update = (diff < 0.05f) || (pcount > a.silence);
-        const bool seed = !update && (t < a.etu);
-        env = update ? cond_ema(env, a.enve_w0, v, a.enve_w1)
-                     : (seed ? v : env);
-        pcount = update ? 0.0f : pcount;
-        float filt;
-        w1 = cond_iir(v, w1, a.iir_a, &filt);
-        mdev = cond_ema(mdev, a.mdev_w0, fabsf(filt), a.mdev_w1);
-        avg = cond_ema(avg, a.mean_w0, v, a.mean_w1);
-        out[O_ENV * TB + o] = env;
-        out[O_FILT * TB + o] = filt;
-        out[O_MDEV * TB + o] = mdev;
-        out[O_AVG * TB + o] = avg;
-        out[O_MOD_DEPTH * TB + o] = cond_mod_depth(v, env);
-
-        // raw-value boxes: (sum + v) - old
+            for (int k = 0; k < COND_UNROLL; ++k) v[k] = sv[(r + k) * 32];
+            c.group(v, !c.sink.valid);
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float old = rv[((t - bv_w[i] + RV_RING) % RV_RING) * nt + tid];
-            s[i] = __fsub_rn(__fadd_rn(s[i], v), old);
-            out[(O_BV12 + i) * TB + o] = s[i];
+            for (int k = 0; k < N; ++k) c.step(sv[(r + k) * 32], k);
         }
-        rv[(t % RV_RING) * nt + tid] = v;
+    }
+    __device__ __forceinline__ void tile_done(int s)
+    {
+        mbar_arrive(env_bar + s);  // one arrival per lane
+    }
+};
 
-        // squared-filtered boxes over (filt*filt)*10
-        const float q = __fmul_rn(__fmul_rn(filt, filt), 10.0f);
+// warp 4: mod_depth (NfcTech.cpp:71-74); its divide feeds nothing back,
+// so it runs here, off the envelope chain
+struct V2DepthRole {
+    const float *envs;    // the env tiles, at this lane's column
+    uint64_t *env_bar;
+    uint32_t B;
+    bool valid;
+    const float *etile;
+    V2Out out;
+
+    __device__ __forceinline__ void tile(int64_t j0, int s, uint32_t parity)
+    {
+        out.tile(j0, B);
+        mbar_wait(env_bar + s, parity);
+        etile = envs + s * (V2_TILE_ROWS * 32);
+    }
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int)
+    {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            const float md =
+                cond_mod_depth_split(sv[(r + k) * 32], etile[(r + k) * 32]);
+            if (valid) out.put((uint32_t)(r + k) * B, md);
+        }
+    }
+    __device__ __forceinline__ void tile_done(int) {}
+};
+
+// warp 1: IIR DC removal, the deviation and average EMAs
+// (NfcTech.cpp:56-68) and the squared-filtered boxes over (filt*filt)*10
+struct V2FiltRole {
+    float w1, mdev, avg;
+    float s[2];
+    float iir_a, mw0, mw1, aw0, aw1;
+    float *ring;          // rq, at this lane's column
+    uint32_t B;
+    bool valid;
+    V2Out filt_out, mdev_out, avg_out, q_out[2];
+
+    __device__ __forceinline__ void tile(int64_t j0, int, uint32_t)
+    {
+        filt_out.tile(j0, B);
+        mdev_out.tile(j0, B);
+        avg_out.tile(j0, B);
+        q_out[0].tile(j0, B);
+        q_out[1].tile(j0, B);
+    }
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int j)
+    {
+        float v[N], old[2][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+                old[i][k] = ring[v2_slot(j + k - v2_q_w(i), PQ_RING) * 32];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+            mdev = cond_ema(mdev, mw0, fabsf(filt), mw1);
+            avg = cond_ema(avg, aw0, v[k], aw1);
+            const float q = __fmul_rn(__fmul_rn(filt, filt), 10.0f);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                s[i] = __fsub_rn(__fadd_rn(s[i], q), old[i][k]);
+            ring[v2_slot(j + k, PQ_RING) * 32] = q;
+            if (valid) {
+                const uint32_t o = (uint32_t)(r + k) * B;
+                filt_out.put(o, filt);
+                mdev_out.put(o, mdev);
+                avg_out.put(o, avg);
+                q_out[0].put(o, s[0]);
+                q_out[1].put(o, s[1]);
+            }
+        }
+    }
+    __device__ __forceinline__ void tile_done(int) {}
+};
+
+// warp 2: the BPSK product boxes over (filt*filt[t-lag])*10
+struct V2ProdRole {
+    float w1, iir_a;
+    float s[3];
+    float *rf;            // filtered ring, at this lane's column
+    float *rp[3];         // product rings, at this lane's column
+    uint32_t B;
+    bool valid;
+    V2Out p_out[3];
+
+    __device__ __forceinline__ void tile(int64_t j0, int, uint32_t)
+    {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) p_out[i].tile(j0, B);
+    }
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int j)
+    {
+        float v[N], lagged[3][N], old[3][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k) {
+                lagged[i][k] = rf[v2_slot(j + k - v2_pb_lag(i), PF_RING) * 32];
+                old[i][k] =
+                    rp[i][v2_slot(j + k - v2_pb_box(i), v2_pb_ring(i)) * 32];
+            }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+                const float prod =
+                    __fmul_rn(__fmul_rn(filt, lagged[i][k]), 10.0f);
+                s[i] = __fsub_rn(__fadd_rn(s[i], prod), old[i][k]);
+                rp[i][v2_slot(j + k, v2_pb_ring(i)) * 32] = prod;
+                if (valid) p_out[i].put((uint32_t)(r + k) * B, s[i]);
+            }
+            rf[v2_slot(j + k, PF_RING) * 32] = filt;
+        }
+    }
+    __device__ __forceinline__ void tile_done(int) {}
+};
+
+// warp 3: the raw-value boxes (sum + v) - v[t - w]
+struct V2BvRole {
+    float s[4];
+    float *ring;          // rv, at this lane's column
+    uint32_t B;
+    bool valid;
+    V2Out out[4];
+
+    __device__ __forceinline__ void tile(int64_t j0, int, uint32_t)
+    {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[i].tile(j0, B);
+    }
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int j)
+    {
+        float v[N], old[4][N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) v[k] = sv[(r + k) * 32];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < N; ++k)
+                old[i][k] = ring[v2_slot(j + k - v2_bv_w(i), PV_RING) * 32];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                s[i] = __fsub_rn(__fadd_rn(s[i], v[k]), old[i][k]);
+                if (valid) out[i].put((uint32_t)(r + k) * B, s[i]);
+            }
+            ring[v2_slot(j + k, PV_RING) * 32] = v[k];
+        }
+    }
+    __device__ __forceinline__ void tile_done(int) {}
+};
+
+// state row r of stream b, 0 for a lane past the last stream
+__device__ __forceinline__ float v2_row(const float *st, int64_t r, int64_t B,
+                                        int64_t b, bool valid)
+{
+    return valid ? st[r * B + b] : 0.0f;
+}
+
+// Rotate a state ring of R slots (slot t % R holds clock t) into a shared
+// ring of P slots at this lane's column: the slot holds the value of the
+// last clock before the chunk that is s modulo R, clock base - 1 - d, which
+// goes to j = -1 - d.
+template <int R, int P>
+__device__ __forceinline__ void v2_ring_in(float *ring, const float *st,
+                                           int off, int64_t B, int64_t b,
+                                           bool valid, int32_t base)
+{
+    for (int s = 0; s < R; ++s) {
+        const int d = (int)((((int64_t)base - 1 - s) % R + R) % R);
+        ring[v2_slot(-1 - d, P) * 32] = v2_row(st, off + s, B, b, valid);
+    }
+}
+
+// and back: slot s ends holding the value of the last clock of the chunk
+// that is s modulo R, at j = T - 1 - d (d < R, so it was not overwritten;
+// for j < 0 it is the value rotated in)
+template <int R, int P>
+__device__ __forceinline__ void v2_ring_out(const float *ring, float *st,
+                                            int off, int64_t B, int64_t b,
+                                            bool valid, int32_t base,
+                                            int64_t T)
+{
+    if (!valid) return;
+    const int64_t last = (int64_t)base + T - 1;
+    for (int s = 0; s < R; ++s) {
+        const int64_t j = T - 1 - ((last - s) % R + R) % R;
+        st[(int64_t)(off + s) * B + b] = ring[v2_slot((int)j, P) * 32];
+    }
+}
+
+// warp 5: keep V2_STAGES tiles in flight.  16-byte copies when every row
+// of the block's 32 columns is 16-byte aligned (B % 4 == 0, aligned
+// samples), else 4-byte ones; columns past the last stream are not copied.
+__device__ __forceinline__ void v2_produce(const V2Args &a, const V2Stages &st,
+                                           int lane, int64_t b0)
+{
+    const int64_t B = a.B, T = a.T;
+    const float *src0 = a.value + b0;
+    const bool wide = (B % 4 == 0) && ((uintptr_t)a.value % 16 == 0);
+    const int ntiles = (int)((T + V2_TILE_ROWS - 1) / V2_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % V2_STAGES;
+        if (i >= V2_STAGES)
+            mbar_wait(st.empty + s, (uint32_t)(i / V2_STAGES - 1) & 1u);
+        const int64_t j0 = (int64_t)i * V2_TILE_ROWS;
+        const int n = T - j0 < V2_TILE_ROWS ? (int)(T - j0) : V2_TILE_ROWS;
+        float *dst = st.tiles + s * (V2_TILE_ROWS * 32);
+        const float *src = src0 + j0 * B;
+        if (wide) {
+            for (int c = lane; c < n * 8; c += 32) {
+                const int r = c >> 3, col = (c & 7) * 4;
+                if (b0 + col < B)
+                    cp_async16(dst + r * 32 + col, src + (int64_t)r * B + col);
+            }
+        } else if (b0 + lane < B) {
+            for (int r = 0; r < n; ++r)
+                cp_async4(dst + r * 32 + lane, src + (int64_t)r * B + lane);
+        }
+        cp_async_arrive(st.full + s);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+extern __shared__ __align__(16) unsigned char v2_dyn_smem[];
+
+__global__ void __launch_bounds__(V2_SCAN_WARPS * 32)
+v2_scan_kernel(const V2Args a)
+{
+    uint64_t *bars = reinterpret_cast<uint64_t *>(v2_dyn_smem);
+    V2Stages st;
+    st.full = bars;
+    st.empty = bars + V2_STAGES;
+    st.env = bars + 2 * V2_STAGES;
+    st.tiles = reinterpret_cast<float *>(
+        v2_dyn_smem + ((3 * V2_STAGES * 8 + 15) / 16) * 16);
+    st.envs = st.tiles + V2_STAGES * V2_TILE_ROWS * 32;
+    float *rings = st.envs + V2_STAGES * V2_TILE_ROWS * 32;
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int64_t B = a.B;
+    const int64_t b0 = (int64_t)blockIdx.x * 32;
+    const int64_t b = b0 + lane;
+    const bool valid = b < B;  // every lane runs: the warps meet at barriers
+    const uint32_t Bu = (uint32_t)B;
+    const float *sti = a.state_in;
+    float *sto = a.state_out;
+    const int64_t TB = a.T * B;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < V2_STAGES; ++s) {
+            mbar_init(st.full + s, 32);
+            mbar_init(st.empty + s, V2_CONSUMERS);
+            mbar_init(st.env + s, 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // shared rings: rv, rf, rq, then the product rings
+    float *rv = rings + lane;
+    float *rf = rv + PV_RING * 32;
+    float *rq = rf + PF_RING * 32;
+    float *rp0 = rq + PQ_RING * 32;
+    float *rp1 = rp0 + PP_RING0 * 32;
+    float *rp2 = rp1 + PP_RING1 * 32;
+
+    if (warp == 0) {
+        V2EnvRole r;
+        r.envs = st.envs + lane;
+        r.env_bar = st.env;
+        r.c.env = v2_row(sti, 0, B, b, valid);
+        r.c.cnt.pcount = v2_row(sti, 4, B, b, valid);
+        r.c.cnt.silence = a.silence;
+        r.c.cnt.clock = (uint32_t)a.base;
+        r.c.cnt.etu = a.etu;
+        r.c.set_weights(a.enve_w0, a.enve_w1);
+        r.c.sink.B = Bu;
+        r.c.sink.valid = valid;
+        r.c.sink.out.init(a.out + O_ENV * TB, b);
+        v2_consume<COND_UNROLL>(r, st, a.T, lane);
+        if (valid) {
+            sto[0 * B + b] = r.c.env;
+            sto[4 * B + b] = r.c.cnt.pcount;
+        }
+    } else if (warp == 1) {
+        V2FiltRole r;
+        r.w1 = v2_row(sti, 1, B, b, valid);
+        r.mdev = v2_row(sti, 2, B, b, valid);
+        r.avg = v2_row(sti, 3, B, b, valid);
+        r.iir_a = a.iir_a;
+        r.mw0 = a.mdev_w0;
+        r.mw1 = a.mdev_w1;
+        r.aw0 = a.mean_w0;
+        r.aw1 = a.mean_w1;
+        r.ring = rq;
+        r.B = Bu;
+        r.valid = valid;
+        r.filt_out.init(a.out + O_FILT * TB, b);
+        r.mdev_out.init(a.out + O_MDEV * TB, b);
+        r.avg_out.init(a.out + O_AVG * TB, b);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-            const float old = rq[((t - q_w[i] + RQ_RING) % RQ_RING) * nt + tid];
-            s[4 + i] = __fsub_rn(__fadd_rn(s[4 + i], q), old);
-            out[(O_Q47 + i) * TB + o] = s[4 + i];
+            r.s[i] = v2_row(sti, S_SUMS + 4 + i, B, b, valid);
+            r.q_out[i].init(a.out + (O_Q47 + i) * TB, b);
         }
-        rq[(t % RQ_RING) * nt + tid] = q;
-
-        // BPSK product boxes over (filt*filt[t-lag])*10
+        v2_ring_in<RQ_RING, PQ_RING>(rq, sti, S_RQ, B, b, valid, a.base);
+        v2_consume<V2_GROUP>(r, st, a.T, lane);
+        if (valid) {
+            sto[1 * B + b] = r.w1;
+            sto[2 * B + b] = r.mdev;
+            sto[3 * B + b] = r.avg;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+                sto[(int64_t)(S_SUMS + 4 + i) * B + b] = r.s[i];
+        }
+        v2_ring_out<RQ_RING, PQ_RING>(rq, sto, S_RQ, B, b, valid, a.base, a.T);
+    } else if (warp == 2) {
+        V2ProdRole r;
+        r.w1 = v2_row(sti, 1, B, b, valid);
+        r.iir_a = a.iir_a;
+        r.rf = rf;
+        r.rp[0] = rp0;
+        r.rp[1] = rp1;
+        r.rp[2] = rp2;
+        r.B = Bu;
+        r.valid = valid;
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-            const float lagged =
-                rf[((t - pb_lag[i] + RF_RING) % RF_RING) * nt + tid];
-            const float prod = __fmul_rn(__fmul_rn(filt, lagged), 10.0f);
-            const int rs = rp_ring[i];
-            const float old = rp[i][((t - pb_box[i] + rs) % rs) * nt + tid];
-            s[6 + i] = __fsub_rn(__fadd_rn(s[6 + i], prod), old);
-            out[(O_P24X6 + i) * TB + o] = s[6 + i];
-            rp[i][(t % rs) * nt + tid] = prod;
+            r.s[i] = v2_row(sti, S_SUMS + 6 + i, B, b, valid);
+            r.p_out[i].init(a.out + (O_P24X6 + i) * TB, b);
         }
-        rf[(t % RF_RING) * nt + tid] = filt;
-    }
-
-    // carry rows 0-4, the rings and the sums; v2_mask_kernel writes carry
-    // rows 5-9 and the rb / rbv rings
-    st_out[0 * B + b] = env;
-    st_out[1 * B + b] = w1;
-    st_out[2 * B + b] = mdev;
-    st_out[3 * B + b] = avg;
-    st_out[4 * B + b] = pcount;
-    for (int r = 0; r < SCAN_RING_ROWS; ++r)
-        st_out[(int64_t)(S_RV + r) * B + b] = rings[r * nt + tid];
+        v2_ring_in<RF_RING, PF_RING>(rf, sti, S_RF, B, b, valid, a.base);
+        v2_ring_in<RP_RING0, PP_RING0>(rp0, sti, S_RP0, B, b, valid, a.base);
+        v2_ring_in<RP_RING1, PP_RING1>(rp1, sti, S_RP1, B, b, valid, a.base);
+        v2_ring_in<RP_RING2, PP_RING2>(rp2, sti, S_RP2, B, b, valid, a.base);
+        v2_consume<V2_GROUP>(r, st, a.T, lane);
+        if (valid) {
 #pragma unroll
-    for (int i = 0; i < N_SUMS; ++i)
-        st_out[(int64_t)(S_SUMS + i) * B + b] = s[i];
+            for (int i = 0; i < 3; ++i)
+                sto[(int64_t)(S_SUMS + 6 + i) * B + b] = r.s[i];
+        }
+        v2_ring_out<RF_RING, PF_RING>(rf, sto, S_RF, B, b, valid, a.base, a.T);
+        v2_ring_out<RP_RING0, PP_RING0>(rp0, sto, S_RP0, B, b, valid, a.base,
+                                        a.T);
+        v2_ring_out<RP_RING1, PP_RING1>(rp1, sto, S_RP1, B, b, valid, a.base,
+                                        a.T);
+        v2_ring_out<RP_RING2, PP_RING2>(rp2, sto, S_RP2, B, b, valid, a.base,
+                                        a.T);
+    } else if (warp == 3) {
+        V2BvRole r;
+        r.ring = rv;
+        r.B = Bu;
+        r.valid = valid;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            r.s[i] = v2_row(sti, S_SUMS + i, B, b, valid);
+            r.out[i].init(a.out + (O_BV12 + i) * TB, b);
+        }
+        v2_ring_in<RV_RING, PV_RING>(rv, sti, S_RV, B, b, valid, a.base);
+        v2_consume<V2_GROUP>(r, st, a.T, lane);
+        if (valid) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                sto[(int64_t)(S_SUMS + i) * B + b] = r.s[i];
+        }
+        v2_ring_out<RV_RING, PV_RING>(rv, sto, S_RV, B, b, valid, a.base, a.T);
+    } else if (warp == 4) {
+        V2DepthRole r;
+        r.envs = st.envs + lane;
+        r.env_bar = st.env;
+        r.B = Bu;
+        r.valid = valid;
+        r.out.init(a.out + O_MOD_DEPTH * TB, b);
+        v2_consume<1>(r, st, a.T, lane);
+    } else {
+        v2_produce(a, st, lane, b0);
+    }
 }
 
 // channel `which` at c samples before chunk row j: from this chunk's
@@ -352,18 +847,29 @@ extern "C" {
 int nfclab_v2_nstate(void) { return NSTATE; }
 
 // Each launcher queues its kernel on `stream` and returns
-// cudaGetLastError() after the launch (0 = queued).  B and T >= 1.
-int nfclab_v2_scan(const V2Args *a, int device, int threads, void *stream)
+// cudaGetLastError() after the launch (0 = queued).
+int64_t nfclab_v2_scan_smem(void) { return V2_SCAN_SMEM; }
+
+// Queues v2_scan_kernel.  Refused (cudaErrorInvalidValue) unless `threads`
+// is V2_SCAN_WARPS * 32, `smem_bytes` holds the barriers, tiles and rings,
+// 1 <= B <= 2^25 (32-bit offsets within a tile), T >= 1, and the clock
+// stays in int32: 0 <= base and base + T + 2 * RBV_RING <= 2^31 (the
+// wrapper's guard).
+int nfclab_v2_scan(const V2Args *a, int device, int threads,
+                   int64_t smem_bytes, void *stream)
 {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    const size_t smem = (size_t)SCAN_RING_ROWS * threads * sizeof(float);
+    if (threads != V2_SCAN_WARPS * 32 || smem_bytes < V2_SCAN_SMEM
+        || a->B < 1 || a->B > (1LL << 25) || a->T < 1 || a->base < 0
+        || (int64_t)a->base + a->T + 2 * RBV_RING > (1LL << 31))
+        return (int)cudaErrorInvalidValue;
     e = cudaFuncSetAttribute(v2_scan_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    const int64_t blocks = (a->B + threads - 1) / threads;
-    v2_scan_kernel<<<(unsigned)blocks, threads, smem,
+    const int64_t blocks = (a->B + 31) / 32;
+    v2_scan_kernel<<<(unsigned)blocks, threads, (size_t)smem_bytes,
                      (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }

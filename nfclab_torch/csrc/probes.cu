@@ -25,15 +25,30 @@
 // sweeps nor merge the sweeps' identical stores to one address.
 //
 // The conditioning probes are bound by latency, not by bytes (24 B per
-// sample, 4 in and 20 out) or operations (~25 per sample): the recurrence
-// is serial in time, so a lane is a thread and each thread walks T
-// dependent steps whose critical path runs through the correctly rounded
-// divide of the envelope test.  They measure that floor.  As in
-// cond_scan_kernel, each thread loads PROBE_UNROLL samples ahead into
-// registers, so global-load latency stays off the chain; the pair kernel
-// keeps its three speculative quotients as separate divides that do not
-// depend on the first sample's decision.
-//
+// sample, 4 in and 20 out: 0.96 ms per 1 x 65536 x 2048 at 3.35 TB/s) or
+// operations (~25 per sample): the recurrence is serial in time, so a lane
+// is a thread, 2048 lanes are 64 blocks of 32 on 64 of the 132 SMs, and
+// each walks T dependent steps.  The probe exists to read that floor, so
+// serial_probe_kernel takes the design cond_scan_kernel takes:
+//   - No divide in the envelope test: |v - env| <= m * env in exact double
+//     arithmetic (cond_env_near_pos).
+//   - No branch in a step: a warp vote once per group of COND_UNROLL steps
+//     (CondEnvChain::group) decides that env stays positive and finite;
+//     the cases hold for the probe's float count and call-local clock.
+//   - One warp per chain (envelope + count; w1 -> filt -> mdev; avg), so
+//     the envelope warp issues only its own chain and one store a step.
+//   - mod_depth's divide, which feeds nothing back, off the chain: a
+//     fourth warp takes env from the envelope warp through a shared ring
+//     of PROBE_ENV_STAGES groups behind mbarriers, and divides there.
+//     (Recomputing the envelope would put the divide's slow-path branch
+//     back beside a chain; a branchless divide needs its own proof.)
+//   - Samples loaded COND_UNROLL ahead in registers, 32-bit offsets, whole
+//     groups without bounds checks and the ragged tail apart (cond_run).
+// What still bounds it: the envelope chain's latency per step, as in
+// cond_scan_kernel, on 64 SMs.  pair_probe_kernel keeps the earlier
+// design, one warp a block with its three speculative quotients as
+// separate divides, since its speculation is what it measures.
+
 // Layout: value and outputs are [G, T, L] f32, lane l of group g at
 // (g * T + t) * L + l, so a warp's 32 lanes load and store 32 neighbouring
 // words at every step (the Pallas [g, t, sub, 128] tiles flattened in their
@@ -47,6 +62,7 @@
 #include <stdint.h>
 
 #include "condition_step.cuh"
+#include "smem_stage.cuh"
 
 #define PROBE_MAX_NOUT 32
 #define PROBE_UNROLL 16   // even: the pair kernel consumes two at a time
@@ -111,25 +127,7 @@ __global__ void copy_probe_kernel(const CopyProbeArgs a)
     }
 }
 
-// One conditioning step (NfcTech.cpp:39-68) on the probe's carry; t is
-// the call-local clock.
-__device__ __forceinline__ void probe_step(const ProbeArgs &a, float v,
-                                            int64_t t, float &env,
-                                            float &w1, float &mdev,
-                                            float &avg, float &pcount,
-                                            float &filt)
-{
-    const float diff = cond_env_diff(v, env);
-    pcount = __fadd_rn(pcount, 1.0f);
-    const bool update = (diff < 0.05f) || (pcount > a.silence);
-    const bool seed = !update && (t < a.etu);
-    env = update ? cond_ema(env, a.enve_w0, v, a.enve_w1) : (seed ? v : env);
-    pcount = update ? 0.0f : pcount;
-    w1 = cond_iir(v, w1, a.iir_a, &filt);
-    mdev = cond_ema(mdev, a.mdev_w0, fabsf(filt), a.mdev_w1);
-    avg = cond_ema(avg, a.mean_w0, v, a.mean_w1);
-}
-
+// pair_probe_kernel's five stores of one step
 __device__ __forceinline__ void probe_store(const ProbeArgs &a, int64_t o,
                                             float v, float env, float filt,
                                             float mdev, float avg)
@@ -141,39 +139,180 @@ __device__ __forceinline__ void probe_store(const ProbeArgs &a, int64_t o,
     a.mod_depth[o] = cond_mod_depth(v, env);
 }
 
-__global__ void serial_probe_kernel(const ProbeArgs a)
+// ---------------------------------------------------------------------------
+// serial_probe_kernel: the conditioning scan's design with the probe's
+// float counter and call-local clock.  A block serves 32 lanes, one per
+// thread, with PROBE_WARPS warps, one per chain, mod_depth on two:
+//   warp 0     envelope + float silence counter (CondEnvChain with
+//              CondFloatCounter): env, and env into the shared stage ring
+//   warp 1     w1 -> filt -> mdev: filt, mdev
+//   warp 2     avg
+//   warps 3-4  mod_depth, from their own samples and env taken from the
+//              ring, each every other group: a correctly rounded divide
+//              ends in a branch, so one warp's divides run one after the
+//              other (~27 ns a step on an H100, measured), above the
+//              envelope chain's pace
+// Each warp loads its own samples COND_UNROLL ahead (cond_run).  The ring
+// holds PROBE_ENV_STAGES groups of COND_UNROLL rows x 32 lanes; each stage
+// has a "full" mbarrier (the envelope warp wrote it) and an "empty" one
+// (its mod_depth warp read it), each counting one arrival per lane of the
+// block that holds a lane of the probe.
+
+#define PROBE_DEPTH_WARPS 2
+#define PROBE_WARPS (3 + PROBE_DEPTH_WARPS)
+#define PROBE_ENV_STAGES 8
+static_assert(PROBE_ENV_STAGES % PROBE_DEPTH_WARPS == 0,
+              "each stage has one mod_depth warp");
+
+struct ProbeStages {
+    float *ring;      // [PROBE_ENV_STAGES][COND_UNROLL][32], at the lane
+    uint64_t *full;
+    uint64_t *empty;
+};
+
+// the envelope warp's sink: env to global memory and to the stage ring;
+// a stage is handed over after its group (or the ragged tail)
+struct ProbeEnvSink {
+    uint32_t L;
+    float *__restrict__ out;
+    ProbeStages st;
+    uint32_t stage, round;
+
+    __device__ __forceinline__ void put(int k, float env,
+                                        const CondFloatCounter &)
+    {
+        out[(uint32_t)k * L] = env;
+        st.ring[(stage * COND_UNROLL + k) * 32] = env;
+    }
+    __device__ __forceinline__ void advance(size_t n)
+    {
+        out += n;
+        mbar_arrive(st.full + stage);
+        if (++stage == PROBE_ENV_STAGES) {
+            stage = 0;
+            ++round;
+        }
+        if (round > 0) mbar_wait(st.empty + stage, (round - 1) & 1u);
+    }
+    __device__ __forceinline__ void done(int rem)
+    {
+        if (rem > 0) mbar_arrive(st.full + stage);
+    }
+};
+
+// mod_depth (NfcTech.cpp:71-74): the divide feeds nothing back, so it runs
+// off the envelope chain, on the warp that owns the group's stage (stage
+// % PROBE_DEPTH_WARPS == w); the other warps' groups pass by
+struct ProbeDepthChain {
+    uint32_t L;
+    float *__restrict__ out;
+    ProbeStages st;
+    uint32_t stage, round, w;
+
+    __device__ __forceinline__ bool mine() const
+    {
+        return stage % PROBE_DEPTH_WARPS == w;
+    }
+
+    __device__ __forceinline__ const float *wait_stage()
+    {
+        mbar_wait(st.full + stage, round & 1u);
+        return st.ring + stage * COND_UNROLL * 32;
+    }
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL])
+    {
+        if (!mine()) return;
+        const float *e = wait_stage();
+        float env[COND_UNROLL];
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k) env[k] = e[k * 32];
+        mbar_arrive(st.empty + stage);
+#pragma unroll
+        for (int k = 0; k < COND_UNROLL; ++k)
+            out[(uint32_t)k * L] = cond_mod_depth_split(v[k], env[k]);
+    }
+    // the ragged tail: the stage the envelope warp hands over in done()
+    __device__ __forceinline__ void step(float v, int k)
+    {
+        if (!mine()) return;
+        const float *e = wait_stage();
+        out[(uint32_t)k * L] = cond_mod_depth_split(v, e[k * 32]);
+    }
+    __device__ __forceinline__ void advance(size_t n)
+    {
+        out += n;
+        if (++stage == PROBE_ENV_STAGES) {
+            stage = 0;
+            ++round;
+        }
+    }
+    __device__ __forceinline__ void done(int) {}
+};
+
+__global__ void __launch_bounds__(PROBE_WARPS * 32)
+serial_probe_kernel(const ProbeArgs a)
 {
-    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= a.G * a.L) return;
+    __shared__ __align__(16) float ring[PROBE_ENV_STAGES * COND_UNROLL * 32];
+    __shared__ __align__(8) uint64_t bars[2 * PROBE_ENV_STAGES];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int64_t n = a.G * a.L;
+    const int64_t first = (int64_t)blockIdx.x * 32;
+    const int64_t idx = first + lane;
+    if (threadIdx.x == 0) {
+        const uint32_t lanes = (uint32_t)(n - first < 32 ? n - first : 32);
+        for (int s = 0; s < 2 * PROBE_ENV_STAGES; ++s)
+            mbar_init(bars + s, lanes);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (idx >= n) return;  // no block-wide barrier below
     const int64_t g = idx / a.L;
-    const int64_t L = a.L, T = a.T;
-    const int64_t o0 = g * T * L + (idx - g * L);
-    const float *__restrict__ value = a.value;
+    const uint32_t L = (uint32_t)a.L;
+    const int64_t o0 = g * a.T * a.L + (idx - g * a.L);
+    const float *__restrict__ vp = a.value + o0;
+    const ProbeStages st = {ring + lane, bars, bars + PROBE_ENV_STAGES};
 
-    float env = 0.0f, w1 = 0.0f, mdev = 0.0f, avg = 0.0f, pcount = 0.0f;
-    float cur[PROBE_UNROLL], nxt[PROBE_UNROLL];
-#pragma unroll
-    for (int k = 0; k < PROBE_UNROLL; ++k)
-        cur[k] = k < T ? value[o0 + k * L] : 0.0f;
-
-    for (int64_t j0 = 0; j0 < T; j0 += PROBE_UNROLL) {
-        // the next samples are in flight while this group is computed
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; ++k) {
-            const int64_t j = j0 + PROBE_UNROLL + k;
-            nxt[k] = j < T ? value[o0 + j * L] : 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; ++k) {
-            const int64_t j = j0 + k;
-            if (j < T) {
-                float filt;
-                probe_step(a, cur[k], j, env, w1, mdev, avg, pcount, filt);
-                probe_store(a, o0 + j * L, cur[k], env, filt, mdev, avg);
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; ++k) cur[k] = nxt[k];
+    if (warp == 0) {
+        CondEnvChain<CondFloatCounter, ProbeEnvSink> c;
+        c.env = 0.0f;
+        c.cnt.pcount = 0.0f;
+        c.cnt.silence = a.silence;
+        c.cnt.clock = 0u;
+        c.cnt.etu = a.etu;
+        c.set_weights(a.enve_w0, a.enve_w1);
+        c.sink.L = L;
+        c.sink.out = a.env + o0;
+        c.sink.st = st;
+        c.sink.stage = c.sink.round = 0u;
+        cond_run(c, vp, L, a.T);
+    } else if (warp == 1) {
+        CondFiltChain<false> c;
+        c.w1 = c.mdev = 0.0f;
+        c.a = a.iir_a;
+        c.w0m = a.mdev_w0;
+        c.w1m = a.mdev_w1;
+        c.B = L;
+        c.out_w1 = nullptr;
+        c.out_filt = a.filt + o0;
+        c.out_mdev = a.mdev + o0;
+        cond_run(c, vp, L, a.T);
+    } else if (warp == 2) {
+        CondAvgChain c;
+        c.avg = 0.0f;
+        c.w0 = a.mean_w0;
+        c.w1 = a.mean_w1;
+        c.B = L;
+        c.out_avg = a.avg + o0;
+        cond_run(c, vp, L, a.T);
+    } else {
+        ProbeDepthChain c;
+        c.L = L;
+        c.out = a.mod_depth + o0;
+        c.st = st;
+        c.stage = c.round = 0u;
+        c.w = (uint32_t)(warp - 3);
+        cond_run(c, vp, L, a.T);
     }
 }
 
@@ -263,13 +402,21 @@ int nfclab_cond_probe(const ProbeArgs *a, int pair, int device, int threads,
 {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    const int64_t blocks = (a->G * a->L + threads - 1) / threads;
-    if (pair)
+    const int64_t lanes = a->G * a->L;
+    if (pair) {
+        const int64_t blocks = (lanes + threads - 1) / threads;
         pair_probe_kernel<<<(unsigned)blocks, threads, 0,
                             (cudaStream_t)stream>>>(*a);
-    else
-        serial_probe_kernel<<<(unsigned)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(*a);
+        return (int)cudaGetLastError();
+    }
+    // serial: a block of PROBE_WARPS warps for 32 lanes; 32-bit offsets
+    // reach COND_UNROLL rows of L lanes, and the int32 clock the last
+    // group
+    if (threads != PROBE_WARPS * 32 || a->L < 1 || a->L > (1LL << 27)
+        || a->T > (int64_t)INT32_MAX - COND_UNROLL)
+        return (int)cudaErrorInvalidValue;
+    serial_probe_kernel<<<(unsigned)((lanes + 31) / 32), threads, 0,
+                          (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }
 

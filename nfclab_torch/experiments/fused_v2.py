@@ -21,10 +21,11 @@ tiling (``native_layout``, ``sub``, ``LANES``, ``UNROLL``) is dropped: any
 B >= 1; T stays a multiple of TILE, as the original's contract.
 
 Two hand-written CUDA kernels compute it (``nfclab_torch/csrc/
-fused_v2.cu``): ``fused_v2_scan``, one thread per stream serially over the
-chunk (conditioning, mod_depth, the nine box sums; rings in shared
-memory), and ``fused_v2_mask``, one thread per (sample, stream) for
-detect_mask and the state rows the mask owns.  Each wrapper runs its plain
+fused_v2.cu``): ``fused_v2_scan``, serial over the chunk with 32 streams a
+block and the chains split over warps (conditioning, mod_depth, the nine
+box sums; samples staged and rings kept in shared memory), and
+``fused_v2_mask``, one thread per (sample, stream) for detect_mask and the
+state rows the mask owns.  Each wrapper runs its plain
 PyTorch version (``_scan_plain``, ``_mask_plain``, the kernels' float32
 operation order) when its input lies on the CPU.  Inside, samples and
 outputs are time-major ``[T, B]`` and the state section-major

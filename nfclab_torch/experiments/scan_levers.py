@@ -1,44 +1,62 @@
 """What each lever of the serial scans' design buys on the card.
 
-``cond_scan_kernel`` and ``ff_scan_kernel`` take their envelope decision
-without a divide (the conditioning scan, where a group of steps keeps its
-envelope positive, without a branch either), split their chains over warps, and (the fused
-scan) stage their samples in shared memory and issue a group's ring reads
-before its ring writes.  This script times them against variant libraries that
-each undo one lever, built from patched copies of ``csrc/`` (the program
-itself has no switch for any of them):
+The four serial scans -- ``cond_scan_kernel``, ``ff_scan_kernel``,
+``v2_scan_kernel`` and ``serial_probe_kernel`` -- take their envelope
+decision without a divide (where a group of steps keeps its envelope
+positive, without a branch either), split their chains over warps, and
+(the fused scans) stage their samples in shared memory and issue a group's
+ring reads before its ring writes; ``v2_scan_kernel`` keeps its rings
+rotated to the chunk in power-of-two sizes, so a step takes a mask and no
+modulo, and v2 and the probe run mod_depth's divide on a warp of its own.
+This script times them against variant libraries that each undo one
+lever, built from patched copies of ``csrc/`` (the program itself has no
+switch for any of them):
 
 - ``current``: ``csrc/`` as it is;
 - ``quotient``: the envelope test written as the correctly rounded
   quotient ``cond_env_diff(v, env) < 0.05f``;
-- ``group1``: the current library, ``ff_scan_kernel`` launched with groups
-  of one step (each ring read after the ring writes of the step before);
-- ``one_path``: ``cond_scan_kernel``'s envelope warp without its
-  per-group choice, every step through ``cond_env_near`` and its
-  special-value branch;
-- ``base`` and ``base_near`` (with ``--base DIR``, the ``csrc/`` of an
-  earlier checkout whose scans run one warp per block): that design as it
-  is, and with the divide-free test put in.
+- ``one_path``: no per-group vote, every step through ``cond_env_near``
+  and its special-value branch;
+- ``group1``: ring reads not ahead: ``ff_scan_kernel`` launched with
+  groups of one step, ``v2_scan_kernel`` built with them;
+- ``modulo``: ``v2_scan_kernel``'s rings in their state sizes (96, 96,
+  192, ...), each slot taken with a modulo;
+- ``md_inline``: mod_depth computed by the envelope warp, in v2 and the
+  probe, and their mod_depth warps idle;
+- ``md_divide``: the mod_depth warps divide at every step
+  (``cond_mod_depth``), where the numerator is zero too;
+- ``base`` (with ``--base DIR``, the ``csrc/`` of an earlier checkout
+  whose v2 scan and serial probe run one thread per stream in one warp a
+  block): that design as it is, its v2 launcher given this one's
+  arguments.
 
 Probes of what bounds a step change what the kernels compute, so their
 outputs are not compared (``PROBES``):
 
-- ``no_stores``: every per-step store of both scans skipped (the chains
-  still run; the state rows are still written);
+- ``no_stores``: every per-step store of the scans skipped but the
+  mod_depth warps' (the chains still run; the state rows are still
+  written);
+- ``md_nodiv`` / ``md_off``: the mod_depth warps of v2 and the probe
+  without the divide, or without any work but their waits;
+- ``no_handoff``: those warps read the env stages without waiting for
+  them (nor the probe's envelope warp for their release);
+- ``probe_env_only``: ``serial_probe_kernel``'s envelope warp alone;
 - ``env_only``: ``cond_scan_kernel`` with its envelope warp alone;
-- ``unroll8`` / ``unroll32``: ``cond_scan_kernel`` loading 8 or 32
-  samples ahead instead of 16;
+- ``unroll8`` / ``unroll32``: groups of 8 or 32 steps instead of 16;
 - ``no_branch``: ``cond_env_near`` without its special-value branch;
 - ``float_test``: the envelope test as one float multiply and compare,
   with no branch.
 
-Each variant runs both scans on the same seeded carrier lanes (1024 x
-65536 samples, ASK dips, field-off gaps, noise), the conditioning scan
-also at 1 x 65536; a lever's outputs must equal the current kernels' bit
-for bit.  Times are CUDA events over 5 launches after a warm-up, each
-variant timed in a forward and a backward pass over the list.  One JSON
-line per variant, one with the SM clock and power draw that nvidia-smi
-reads while the current conditioning scan runs, then the card.
+Each variant runs the conditioning and fused scans on the same seeded
+carrier lanes (1024 x 65536 samples, ASK dips, field-off gaps, noise), the
+conditioning scan also at 1 x 65536; ``v2_scan_kernel`` on ``bench_v2``'s
+first configuration (4096 x 16384 of its noise, carried state) and
+``serial_probe_kernel`` on the probe's own input (1 x 65536 x 2048).  A
+lever's outputs must equal the current kernels' bit for bit.  Times are
+CUDA events over 5 launches after a warm-up, each variant timed in a
+forward and a backward pass over the list.  One JSON line per variant, one
+with the SM clock and power draw that nvidia-smi reads while the current
+v2 scan runs, then the card.
 
     python -m nfclab_torch.experiments.scan_levers [--base DIR]
 """
@@ -61,54 +79,170 @@ from ..dsp.frontend import _params_tuple
 from ..kernels import build as kbuild
 from ..kernels import conditioner as kc
 from ..kernels import fused as kf
+from ..kernels import fused_v2 as kv
+from ..kernels import probes as kp
+from . import fused_v2 as v2
+from . import probe_serial_floor as psf
 
 RATE = 10_000_000
 STREAMS, STEPS = 1024, 65536
+V2_STREAMS, V2_STEPS = 4096, 16384
 LEVER_DIR = kbuild.BUILD_DIR / "levers"
+HEADER = "condition_step.cuh"
 
 _TEST = "    return (double)ad <= __dmul_rn(m, (double)env);"
-QUOTIENT = {"condition_step.cuh": [
+QUOTIENT = {HEADER: [
     (_TEST, "    return __fdiv_rn(ad, env) < 0.05f;")]}
-NEAR = {name: [("(diff < 0.05f)", "cond_env_near(v, env)")]
-        for name in ("conditioner.cu", "fused_frontend.cu")}
+ONE_PATH = {HEADER: [
+    ("        if (__all_sync(__activemask(), a | b | pass)) {",
+     "        if (false) {")]}
+GROUP1 = {"fused_v2.cu": [("v2_consume<V2_GROUP>", "v2_consume<1>")]}
+MODULO = {"fused_v2.cu": [
+    ("constexpr int PV_RING = 128, PF_RING = 128, PQ_RING = 256;",
+     "constexpr int PV_RING = RV_RING, PF_RING = RF_RING, PQ_RING = RQ_RING;"),
+    ("    return j & (p - 1);", "    return (j % p + p) % p;"),
+]}
+# the envelope sinks receive v as well; the envelope warps store mod_depth
+# and the mod_depth warps store nothing
+_MD_NEVER = "if (B == 0u) "
+MD_INLINE = {
+    HEADER: [("        sink.put(k, env, cnt);", "        sink.put(k, env, cnt, v);")],
+    "conditioner.cu": [("const CondPulseCounter &c)", "const CondPulseCounter &c, float)")],
+    "fused_v2.cu": [
+        ("""                                        const CondFloatCounter &)
+    {
+        etile[(r + k) * 32] = env;
+        if (valid) out.put((uint32_t)(r + k) * B, env);""",
+         """                                        const CondFloatCounter &, float v)
+    {
+        etile[(r + k) * 32] = env;
+        if (valid) out.put((uint32_t)(r + k) * B, env);
+        if (valid) __stcg(out.cur + md_off + (uint32_t)(r + k) * B,
+                          cond_mod_depth_split(v, env));"""),
+        ("    float *etile;      // the stage's env tile, at this lane's column\n",
+         "    float *etile;      // the stage's env tile, at this lane's column\n"
+         "    size_t md_off;\n"),
+        ("        r.c.sink.out.init(a.out + O_ENV * TB, b);\n",
+         "        r.c.sink.out.init(a.out + O_ENV * TB, b);\n"
+         "        r.c.sink.md_off = (size_t)(O_MOD_DEPTH - O_ENV) * TB;\n"),
+        ("            if (valid) out.put((uint32_t)(r + k) * B, md);",
+         "            if (valid) " + _MD_NEVER + "out.put((uint32_t)(r + k) * B, md);"),
+    ],
+    "probes.cu": [
+        ("""                                        const CondFloatCounter &)
+    {
+        out[(uint32_t)k * L] = env;""",
+         """                                        const CondFloatCounter &, float v)
+    {
+        out[(uint32_t)k * L] = env;
+        md[(uint32_t)k * L] = cond_mod_depth_split(v, env);"""),
+        ("    float *__restrict__ out;\n    ProbeStages st;\n",
+         "    float *__restrict__ out;\n    float *__restrict__ md;\n"
+         "    ProbeStages st;\n"),
+        ("        out += n;\n        mbar_arrive(st.full + stage);",
+         "        out += n;\n        md += n;\n        mbar_arrive(st.full + stage);"),
+        ("        c.sink.out = a.env + o0;\n",
+         "        c.sink.out = a.env + o0;\n        c.sink.md = a.mod_depth + o0;\n"),
+        ("            out[(uint32_t)k * L] = cond_mod_depth_split(v[k], env[k]);",
+         "            if (L == 0u) out[(uint32_t)k * L] = "
+         "cond_mod_depth_split(v[k], env[k]);"),
+        ("        out[(uint32_t)k * L] = cond_mod_depth_split(v, e[k * 32]);",
+         "        if (L == 0u) out[(uint32_t)k * L] = "
+         "cond_mod_depth_split(v, e[k * 32]);"),
+    ],
+}
+# mod_depth's warps dividing on every step, the zero numerator included
+MD_DIVIDE = {f: [("cond_mod_depth_split(", "cond_mod_depth(")]
+             for f in ("fused_v2.cu", "probes.cu")}
+# an earlier v2 launcher, given this one's arguments (it sizes its own
+# shared memory)
+BASE_ABI = {"fused_v2.cu": [
+    ("int nfclab_v2_scan(const V2Args *a, int device, int threads, void *stream)\n{",
+     "int64_t nfclab_v2_scan_smem(void) { return 0; }\n\n"
+     "int nfclab_v2_scan(const V2Args *a, int device, int threads,\n"
+     "                   int64_t smem_unused, void *stream)\n{"),
+]}
 
-_NEVER = "if (o == 0xffffffffu) "  # a store no step makes
+_NEVER = "if (B == 0u) "  # a store no step makes
 _SPECIAL = ("    if (__builtin_expect(!(env > 0.0f && env < INFINITY), 0))\n"
             "        near = cond_env_diff(v, env) < 0.05f;\n")
-# cond_scan_kernel's envelope warp with every group on cond_env_near (the
-# special-value branch in every step)
-ONE_PATH = {"conditioner.cu": [
-    ("        if (__all_sync(__activemask(), a | b)) {", "        if (false) {")]}
 PROBES = {
     "no_stores": {
         "conditioner.cu": [
-            ("        out_env[o] = env;\n        out_pulse[o] = (int32_t)pulse;",
-             "        " + _NEVER + "{ out_env[0] = env; out_pulse[0] = pulse; }"),
-            ("        out_w1[o] = w1;\n        out_filt[o] = filt;\n"
+            ("        out_env[o] = env;\n        out_pulse[o] = (int32_t)c.pulse;",
+             "        " + _NEVER + "{ out_env[o] = env; out_pulse[o] = c.pulse; }"),
+        ],
+        HEADER: [
+            ("        if (W1) out_w1[o] = w1;\n        out_filt[o] = filt;\n"
              "        out_mdev[o] = mdev;",
-             "        " + _NEVER + "{ out_w1[0] = w1; out_filt[0] = filt; "
-             "out_mdev[0] = mdev; }"),
-            ("        out_avg[o] = avg;", "        " + _NEVER + "out_avg[0] = avg;"),
+             "        " + _NEVER + "{ out_w1[o] = w1; out_filt[o] = filt; "
+             "out_mdev[o] = mdev; }"),
+            ("        out_avg[(uint32_t)k * B] = avg;",
+             "        " + _NEVER + "out_avg[0] = avg;"),
         ],
         "fused_frontend.cu": [
-            ("        __stcg(cur + o, v);", "        " + _NEVER + "__stcg(cur, v);"),
+            ("        __stcg(cur + o, v);",
+             "        if (o == 0xffffffffu) __stcg(cur, v);"),
+        ],
+        "fused_v2.cu": [
+            ("        __stcg(cur + o, v);",
+             "        if (o == 0xffffffffu) __stcg(cur, v);"),
+        ],
+        "probes.cu": [
+            ("        out[(uint32_t)k * L] = env;", "        if (L == 0u) out[0] = env;"),
         ],
     },
+    "md_nodiv": {HEADER: [
+        ("    const float q = __fdiv_rn(zero ? env : num, env);\n"
+         "    return zero ? 0.0f : q;", "    return zero ? 0.0f : num;")]},
+    "md_off": {
+        "fused_v2.cu": [
+            ("            const float md =\n"
+             "                cond_mod_depth_split(sv[(r + k) * 32], etile[(r + k) * 32]);\n"
+             "            if (valid) out.put((uint32_t)(r + k) * B, md);",
+             "            if (B == 0u) out.put(0, etile[0]);")],
+        "probes.cu": [
+            ("            out[(uint32_t)k * L] = cond_mod_depth_split(v[k], env[k]);",
+             "            if (L == 0u) out[0] = env[k];")],
+    },
+    "no_handoff": {
+        "fused_v2.cu": [
+            ("        mbar_arrive(env_bar + s);  // one arrival per lane", ""),
+            ("        mbar_wait(env_bar + s, parity);", "")],
+        "probes.cu": [
+            ("        mbar_arrive(st.full + stage);\n        if (++stage",
+             "        if (++stage"),
+            ("        if (round > 0) mbar_wait(st.empty + stage, (round - 1) & 1u);",
+             ""),
+            ("        if (rem > 0) mbar_arrive(st.full + stage);", ""),
+            ("        mbar_wait(st.full + stage, round & 1u);", ""),
+            ("        mbar_arrive(st.empty + stage);", "")],
+    },
+    "probe_env_only": {"probes.cu": [
+        ("        if (round > 0) mbar_wait(st.empty + stage, (round - 1) & 1u);",
+         ""),
+        ("    } else if (warp == 1) {\n        CondFiltChain<false> c;",
+         "    } else if (a.T < 0) {\n        CondFiltChain<false> c;"),
+        ("    } else if (warp == 2) {\n        CondAvgChain c;",
+         "    } else if (a.T < 0) {\n        CondAvgChain c;"),
+        ("    } else {\n        ProbeDepthChain c;",
+         "    } else if (a.T < 0) {\n        ProbeDepthChain c;")]},
     "env_only": {"conditioner.cu": [
         ("    } else if (warp == 1) {", "    } else if (warp == 1 && a.T < 0) {"),
         ("    } else {\n        CondAvgChain c;",
          "    } else if (a.T < 0) {\n        CondAvgChain c;"),
     ]},
-    "unroll8": {"conditioner.cu": [("#define COND_UNROLL 16",
-                                    "#define COND_UNROLL 8")]},
-    "unroll32": {"conditioner.cu": [("#define COND_UNROLL 16",
-                                     "#define COND_UNROLL 32")]},
-    "no_branch": {"condition_step.cuh": [(_SPECIAL, "")]},
-    "float_test": {"condition_step.cuh": [
+    "unroll8": {HEADER: [("#define COND_UNROLL 16", "#define COND_UNROLL 8")]},
+    "unroll32": {HEADER: [("#define COND_UNROLL 16", "#define COND_UNROLL 32")]},
+    "no_branch": {HEADER: [(_SPECIAL, "")]},
+    "float_test": {HEADER: [
         (_SPECIAL, ""),
         (_TEST, "    return ad <= __fmul_rn(0.05f, env);"),
     ]},
 }
+# every patch of the current sources, for the test that they apply
+VARIANTS = {"quotient": QUOTIENT, "one_path": ONE_PATH, "group1": GROUP1,
+            "modulo": MODULO, "md_inline": MD_INLINE, "md_divide": MD_DIVIDE}
 
 
 def carrier_lanes(streams: int, steps: int, seed: int = 0) -> np.ndarray:
@@ -142,17 +276,15 @@ def clocks_under_load(fn, launches: int) -> dict:
     return {"clocks_sm_mhz": mhz, "power_draw_w": watts}
 
 
-def build_variant(name: str, src: Path, patches: dict, header: Path = None):
+def build_variant(name: str, src: Path, patches: dict):
     """Build the kernel library from a copy of src with each (old, new) of
-    patches[file] applied (each must match), and header in place of
-    condition_step.cuh when given; returns the library's path."""
+    patches[file] applied (each must match); returns the library's
+    path."""
     root = LEVER_DIR / name
     if root.exists():
         shutil.rmtree(root)
     work = root / "csrc"
     shutil.copytree(src, work)
-    if header is not None:
-        shutil.copy(header, work / "condition_step.cuh")
     for fname, edits in patches.items():
         text = (work / fname).read_text()
         for old, new in edits:
@@ -164,30 +296,33 @@ def build_variant(name: str, src: Path, patches: dict, header: Path = None):
 
 
 class Variant:
-    """A library and its launch geometry: the one-warp design takes 32
-    threads a block and shared memory for its rings alone."""
+    """A library and its launch geometry: the earlier design (``base``)
+    runs its v2 scan and serial probe one warp a block."""
 
-    def __init__(self, name, path, one_warp=False, group=None, probe=False):
+    def __init__(self, name, path, base=False, group=None, probe=False):
         self.name, self.path = name, path
-        self.one_warp, self.group, self.probe = one_warp, group, probe
+        self.base, self.group, self.probe = base, group, probe
         self.lib = None
 
     def __enter__(self):
         if self.lib is None:
             self.lib = kf.bind(self.path)
-        self.saved = (kf.library, kc.library, kf.SCAN_THREADS, kf.scan_smem,
-                      kc.THREADS, kf.scan_group)
-        kf.library = kc.library = lambda: self.lib
-        if self.one_warp:
-            kf.SCAN_THREADS, kc.THREADS = 32, 32
-            kf.scan_smem = lambda rows: rows * 32 * 4
+        self.saved = (kf.library, kc.library, kv.library, kp.library,
+                      kf.scan_group, kv.SCAN_THREADS, kv.scan_smem,
+                      kp.SERIAL_THREADS)
+        kf.library = kc.library = kv.library = kp.library = lambda: self.lib
+        # the library sizes the v2 scan's shared memory (a variant's rings
+        # differ; the earlier design's launcher sizes its own)
+        kv.scan_smem = lambda stages=None: self.lib.nfclab_v2_scan_smem()
+        if self.base:
+            kv.SCAN_THREADS, kp.SERIAL_THREADS = 32, 32
         if self.group is not None:
             kf.scan_group = lambda plan: self.group
         return self
 
     def __exit__(self, *exc):
-        (kf.library, kc.library, kf.SCAN_THREADS, kf.scan_smem, kc.THREADS,
-         kf.scan_group) = self.saved
+        (kf.library, kc.library, kv.library, kp.library, kf.scan_group,
+         kv.SCAN_THREADS, kv.scan_smem, kp.SERIAL_THREADS) = self.saved
 
 
 def _event_ms(fn, reps=5) -> float:
@@ -203,6 +338,9 @@ def _event_ms(fn, reps=5) -> float:
     return a.elapsed_time(b) / reps
 
 
+KEYS = ("cond", "cond_repair", "ff_scan", "v2_scan", "serial_probe")
+
+
 def run(base: Path = None, device="cuda") -> list:
     dev = torch.device(device)
     pt = _params_tuple(SignalParams(RATE))
@@ -214,66 +352,84 @@ def run(base: Path = None, device="cuda") -> list:
             torch.zeros(STREAMS, dtype=torch.int32, device=dev))
     init1 = tuple(t[:1].contiguous() for t in init)
     st = torch.zeros(plan.nstate, STREAMS, device=dev)
+    # bench_v2's input, its second chunk from the state of its first
+    rng = np.random.default_rng(0)
+    xv = torch.from_numpy(rng.random((2 * V2_STEPS, V2_STREAMS),
+                                     dtype=np.float32) * np.float32(0.4)
+                          ).to(dev)
+    xv1 = xv[V2_STEPS:].contiguous()
+    xp = psf.probe_input(1, psf.T_PROBE, psf.SUB, dev)
 
     current = kbuild.build()
-    variants = [Variant("current", current),
-                Variant("quotient", build_variant("quotient", kbuild.SRC_DIR,
-                                                  QUOTIENT)),
-                Variant("group1", current, group=1),
-                Variant("one_path", build_variant(
-                    "one_path", kbuild.SRC_DIR, ONE_PATH))]
+    variants = [Variant("current", current)]
+    for name, patches in VARIANTS.items():
+        variants.append(Variant(name, build_variant(name, kbuild.SRC_DIR,
+                                                    patches),
+                                group=1 if name == "group1" else None))
     if base is not None:
-        header = kbuild.SRC_DIR / "condition_step.cuh"
-        variants += [Variant("base", build_variant("base", base, {}), True),
-                     Variant("base_near", build_variant("base_near", base,
-                                                        NEAR, header), True)]
+        variants.append(Variant("base", build_variant("base", base, BASE_ABI),
+                                base=True))
     for name, patches in PROBES.items():
         variants.append(Variant(name, build_variant(name, kbuild.SRC_DIR,
                                                     patches), probe=True))
 
+    calls = {
+        "cond": lambda: ck.condition_scan_tm(x, *init, pt),
+        "cond_repair": lambda: ck.condition_scan_tm(x1, *init1, pt),
+        "ff_scan": lambda: ff.fused_scan(x, st, 0, pt, plan),
+        "v2_scan": lambda: v2.v2_scan(xv1, stv, V2_STEPS, pt),
+        "serial_probe": lambda: psf.serial_probe(xp),
+    }
+    with variants[0]:
+        stv = v2.v2_scan(xv[:V2_STEPS].contiguous(),
+                         torch.zeros(v2.NSTATE, V2_STREAMS, device=dev), 0,
+                         pt)[1]
+    del xv
+    # the v2 scan owns every state row but the mask's
+    scan_rows = ~v2.mask_state_rows().to(dev)
     want = None
     for v in variants:
         if v.probe:
             continue
         with v:
-            got = (ck.condition_scan_tm(x, *init, pt),
-                   ck.condition_scan_tm(x1, *init1, pt),
-                   ff.fused_scan(x, st, 0, pt, plan))
-        flat = [*got[0], *got[1], got[2][0], got[2][2]]
+            got = {k: calls[k]() for k in KEYS}
+        flat = [*got["cond"], *got["cond_repair"], got["ff_scan"][0],
+                got["ff_scan"][2], got["v2_scan"][0][:-1],
+                got["v2_scan"][1][scan_rows], *got["serial_probe"]]
         if want is None:
             want = flat
         elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                      for a, b in zip(flat, want)):
             raise AssertionError(f"variant {v.name} differs from current")
         del got, flat
+    del want
     times = {v.name: [] for v in variants}
     for v in variants + variants[::-1]:
         with v:
-            times[v.name].append((
-                _event_ms(lambda: ck.condition_scan_tm(x, *init, pt)),
-                _event_ms(lambda: ck.condition_scan_tm(x1, *init1, pt)),
-                _event_ms(lambda: ff.fused_scan(x, st, 0, pt, plan))))
+            times[v.name].append(tuple(_event_ms(calls[k]) for k in KEYS))
     rows = []
     with variants[0]:
-        load = clocks_under_load(
-            lambda: ck.condition_scan_tm(x, *init, pt), 200)
+        load = clocks_under_load(calls["v2_scan"], 500)
+    steps = {"cond": STEPS, "cond_repair": STEPS, "ff_scan": STEPS,
+             "v2_scan": V2_STEPS, "serial_probe": psf.T_PROBE}
     for v in variants:
         t = np.array(times[v.name])
         row = {"variant": v.name, "probe": v.probe}
-        for i, key in enumerate(("cond_ms", "cond_repair_ms", "ff_scan_ms")):
-            row[key] = float(t[:, i].mean())
-            row[key.replace("_ms", "_ns_per_step")] = float(
-                t[:, i].mean() * 1e6 / STEPS)
-            row[key + "_passes"] = [float(a) for a in t[:, i]]
+        for i, key in enumerate(KEYS):
+            row[key + "_ms"] = float(t[:, i].mean())
+            row[key + "_ns_per_step"] = float(
+                t[:, i].mean() * 1e6 / steps[key])
+            row[key + "_ms_passes"] = [float(a) for a in t[:, i]]
         rows.append(row)
-    rows.append({"during": "200 current conditioning scans", **load})
+    rows.append({"during": "500 current v2 scans", **load})
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", type=Path, default=None,
-                    help="csrc/ of an earlier checkout (one-warp scans)")
+                    help="csrc/ of an earlier checkout (one-warp v2 scan "
+                         "and serial probe)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_levers: needs a CUDA device")

@@ -119,11 +119,17 @@ def bind(path) -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.nfclab_cond_scan.restype = ctypes.c_int
-    for name in ("nfclab_v2_scan", "nfclab_v2_mask"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(V2Args), ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    lib.nfclab_v2_scan.argtypes = [
+        ctypes.POINTER(V2Args), ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+    lib.nfclab_v2_scan.restype = ctypes.c_int
+    lib.nfclab_v2_mask.argtypes = [
+        ctypes.POINTER(V2Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.nfclab_v2_mask.restype = ctypes.c_int
+    lib.nfclab_v2_scan_smem.argtypes = []
+    lib.nfclab_v2_scan_smem.restype = ctypes.c_int64
     lib.nfclab_v2_nstate.argtypes = []
     lib.nfclab_v2_nstate.restype = ctypes.c_int
     lib.nfclab_copy_probe.argtypes = [

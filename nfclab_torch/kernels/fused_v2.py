@@ -14,9 +14,19 @@ import ctypes
 
 import torch
 
-from .fused import check, library
+from .fused import SMEM_LIMIT, check, library
 
-SCAN_THREADS = 32   # one warp per block: 440 ring rows of 32 streams, 56 KB
+# v2_scan_kernel: 32 streams per block, six warps (envelope, filter + q
+# boxes, product boxes, raw-value boxes, mod_depth, the producer that
+# stages samples)
+SCAN_THREADS = 192
+SCAN_STAGES = 4        # staged sample tiles in flight
+SCAN_TILE_ROWS = 96    # samples per tile: whole ring groups (6) and
+                       # envelope groups (16)
+# the scan's shared rings: the state rings (value 96, filtered 96, squared
+# 192, products 8/16/32) each in the power of two at least its size
+SCAN_RING_ROWS = 128 + 128 + 256 + 8 + 16 + 32
+SCAN_MAX_STREAMS = 1 << 25   # 32-bit offsets within a tile
 MASK_THREADS = 256
 
 _p = ctypes.c_void_p
@@ -50,11 +60,34 @@ def _args(out, state_in, state_out, base, nstate):
     return lib, a
 
 
+def scan_smem(stages: int | None = None) -> int:
+    """Shared memory of one v2_scan_kernel block (SCAN_STAGES stages unless
+    given): three mbarriers per stage (full, empty, env tile written)
+    padded to 16 B, the staged sample and env tiles and the rings, 32
+    columns each."""
+    stages = SCAN_STAGES if stages is None else stages
+    bars = (3 * stages * 8 + 15) // 16 * 16
+    return bars + 128 * (2 * stages * SCAN_TILE_ROWS + SCAN_RING_ROWS)
+
+
 def launch_scan(value_tm, state_in, state_out, out, base, pt, nstate):
     """Queue v2_scan_kernel: value_tm [T, B]; state_in, state_out
     [nstate, B]; out [15, T, B] (its detect_mask row and the state rows of
     the mask are left to launch_mask)."""
+    B = value_tm.shape[1]
+    if B > SCAN_MAX_STREAMS:
+        raise ValueError(f"v2_scan_kernel takes at most {SCAN_MAX_STREAMS} "
+                         f"streams a call, got {B}")
+    smem = scan_smem()
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{SCAN_STAGES} staged tiles and {SCAN_RING_ROWS} "
+                         f"ring rows need {smem} B of shared memory per "
+                         f"block (limit {SMEM_LIMIT})")
     lib, a = _args(out, state_in, state_out, base, nstate)
+    if lib.nfclab_v2_scan_smem() != smem:
+        raise RuntimeError(
+            f"csrc/fused_v2.cu needs {lib.nfclab_v2_scan_smem()} B of "
+            f"shared memory per scan block, kernels/fused_v2.py {smem}")
     a.value = value_tm.data_ptr()
     etu = int(pt[7])
     a.etu, a.silence = etu, float(etu * 10.0)
@@ -62,7 +95,8 @@ def launch_scan(value_tm, state_in, state_out, out, base, pt, nstate):
      a.iir_a) = (float(p) for p in pt[:7])
     stream = torch.cuda.current_stream(out.device).cuda_stream
     check(lib, lib.nfclab_v2_scan(ctypes.byref(a), out.device.index,
-                                  SCAN_THREADS, stream), "fused_v2_scan")
+                                  SCAN_THREADS, smem, stream),
+          "fused_v2_scan")
 
 
 def launch_mask(out, state_in, state_out, base, mp, nstate):

@@ -19,7 +19,11 @@ from .fused import check, library
 MAX_NOUT = 32
 COPY_THREADS = 256
 COPY_BLOCKS_PER_SM = 8   # 2048 threads on every SM, each with a load in flight
-PROBE_THREADS = 32       # one warp per block: the lanes spread over the SMs
+SERIAL_THREADS = 160     # five warps (envelope, filter, average, two
+                         # for mod_depth) for 32 lanes
+PAIR_THREADS = 32        # one warp per block: the lanes spread over the SMs
+SERIAL_MAX_LANES = 1 << 27    # 32-bit offsets reach 16 rows of lanes
+SERIAL_MAX_STEPS = 2**31 - 1 - 16  # the int32 clock's last group
 
 _p = ctypes.c_void_p
 _f = ctypes.c_float
@@ -67,17 +71,23 @@ def launch_probe(value, outs, pt, pair: bool):
 
     value: [G, T, L] f32; outs: (env, filt, mdev, avg, mod_depth), each
     [G, T, L]; pt: the 8-tuple of dsp.frontend._params_tuple."""
+    G, T, L = value.shape
+    if not pair and (L > SERIAL_MAX_LANES or T > SERIAL_MAX_STEPS):
+        raise ValueError(
+            f"serial_probe_kernel takes at most {SERIAL_MAX_LANES} lanes a "
+            f"group and {SERIAL_MAX_STEPS} steps, got {L} x {T}")
     lib = library()
     a = ProbeArgs()
     a.value = value.data_ptr()
     (a.env, a.filt, a.mdev, a.avg, a.mod_depth) = (o.data_ptr() for o in outs)
-    a.G, a.T, a.L = value.shape
+    a.G, a.T, a.L = G, T, L
     etu = int(pt[7])
     a.etu, a.silence = etu, float(etu * 10.0)
     (a.enve_w0, a.enve_w1, a.mdev_w0, a.mdev_w1, a.mean_w0, a.mean_w1,
      a.iir_a) = (float(p) for p in pt[:7])
     stream = torch.cuda.current_stream(value.device).cuda_stream
     check(lib, lib.nfclab_cond_probe(ctypes.byref(a), int(pair),
-                                     value.device.index, PROBE_THREADS,
+                                     value.device.index,
+                                     PAIR_THREADS if pair else SERIAL_THREADS,
                                      stream),
           "pair_probe" if pair else "serial_probe")

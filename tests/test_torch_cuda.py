@@ -258,3 +258,47 @@ def test_scans_on_boundary_lanes_on_card(cuda, rate):
         assert _same(got[2], want[2]), (b, t, base)
         for n in keep:
             assert _same(got[1][n], want[1][n]), (n, b, t, base)
+
+
+def test_experiment_scans_on_boundary_lanes_on_card(cuda):
+    """v2_scan_kernel and serial_probe_kernel, whose envelope test takes no
+    divide, on lanes whose test sits on its boundary: bit-exact against
+    their plain versions.  v2: crafted state rows 0-4 (a float silence
+    count up to twice its timeout), B not a multiple of 32, T below a
+    group, not a multiple of 6 or of the 96-row tile, a base whose rings
+    wrap inside the chunk, one ending at the int32 guard, and lanes that
+    go to zero past the silence timeout.  The probe (zero carry): lanes
+    that seed on env0 and then take their boundary sample, groups of 999
+    lanes, T below a group and ragged, zeros past the timeout."""
+    from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from torch_synth import boundary_lanes, probe_boundary_lanes
+
+    pt, _ = _params()
+    rows = ~v2.mask_state_rows().to(cuda)
+    gen = torch.Generator(device=cuda)
+    top = 2**31 - 2 * v2.RBV_RING
+    for i, (b, t, base, off) in enumerate((
+            ((1 << 16) + 3, 13, 95, None), (1001, 100, top - 100, None),
+            (33, 5, 0, None), (64, 1200, 190, (100, 1150)))):
+        env0, x = boundary_lanes(b, t, seed=30 + i)
+        if off is not None:
+            x[::4, off[0] : off[1]] = 0.0
+        env0, x = torch.from_numpy(env0).to(cuda), torch.from_numpy(x).to(cuda)
+        carry = _boundary_carry(env0, x[:, 0], RATE, seed=50 + i)
+        gen.manual_seed(i)
+        st = torch.rand(v2.NSTATE, b, generator=gen, device=cuda) * 1e-2
+        for row, val in enumerate(carry[:5]):
+            st[row] = val.float()
+        x_tm = x.t().contiguous()
+        got = v2.v2_scan(x_tm, st, base, pt)
+        want = v2._scan_plain(x_tm, st, base, pt)
+        assert _same(got[0][:-1], want[0][:-1]), (b, t, base)
+        assert _same(got[1][rows], want[1][rows]), (b, t, base)
+    for i, (g, lanes, t, off) in enumerate((
+            (2, 999, 137, None), (1, 33, 5, None), (1, 256, 1200, (150, 1150)))):
+        x = probe_boundary_lanes(g * lanes, t, seed=60 + i, off=off)
+        v = torch.from_numpy(np.ascontiguousarray(
+            x.reshape(t, g, lanes).transpose(1, 0, 2))).to(cuda)
+        for a, w in zip(psf.serial_probe(v), psf.serial_probe_plain(v)):
+            assert _same(a, w), (g, lanes, t)

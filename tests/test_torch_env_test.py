@@ -194,3 +194,116 @@ def test_group_choice_keeps_env_positive(name):
                          ).astype(F32)
             assert ((e > 0) & np.isfinite(e)).all(), (name, k)
             assert_same(x[:, k], e)
+
+
+# The same vote in v2_scan_kernel and serial_probe_kernel, whose envelope
+# chain (CondEnvChain with CondFloatCounter) keeps an integer-valued
+# float32 silence count and an int32 clock: the absolute clock base + j in
+# v2 (its wrapper keeps base + T + 948 <= 2**31) and a clock that counts
+# from 0 in every probe call.  The vote's cases read neither the count
+# nor anything but the clock at the group's first step, so here the chain
+# runs its real decisions -- the float count forcing updates past its
+# timeout, seeds below one ETU -- through every group the vote lets pass.
+CLOCKS = {
+    "call_local": np.array([0, 1, 93, 94, 95, 1000, 65520], np.int64),
+    "absolute": np.array([0, 94, 40, 10**6, 2**31 - 948 - 16,
+                          INT32_MAX - 15, INT32_MAX - 14], np.int64),
+}
+
+
+def float_counter_group(env, pcount, v, clock, etu, silence, w0, w1):
+    """16 steps of the float-counter chain per lane (numpy, float32):
+    returns env after each step, [n, GROUP]."""
+    out = np.empty(v.shape, F32)
+    for k in range(GROUP):
+        x = v[:, k]
+        pcount = (pcount + F32(1.0)).astype(F32)
+        with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+            ema = (env * w0 + x * w1).astype(F32)
+        update = env_near(x, env) | (pcount > silence)
+        seeding = (clock + k) < etu
+        env = np.where(update, ema, np.where(seeding, x, env)).astype(F32)
+        pcount = np.where(update, F32(0.0), pcount).astype(F32)
+        out[:, k] = env
+    return out
+
+
+@pytest.mark.parametrize("clock", sorted(CLOCKS))
+@pytest.mark.parametrize("name", ["3.2MS/s", "10MS/s", "40MS/s",
+                                  "b_low_w0", "a_low_w1"])
+def test_group_choice_keeps_env_positive_float_counter(name, clock):
+    w0, w1 = (F32(w) for w in WEIGHTS[name])
+    etu = 94
+    silence = F32(etu * 10.0)
+    rng = np.random.default_rng(sorted(WEIGHTS).index(name) * 7
+                                + len(clock))
+    n = 20000
+    env = np.ldexp(rng.uniform(1, 2, n), rng.integers(-149, 110, n)).astype(F32)
+    env[:4] = [2.0**100, 2.0**-60, 2.0**-100, 1e-45]
+    # samples near env (updates), far from it (holds and seeds), zeros
+    scale = np.where(rng.random(n) < 0.5, env,
+                     np.ldexp(1.0, rng.integers(-110, 100, n))).astype(F32)
+    v = (scale[:, None] * rng.uniform(0.9, 1.1, (n, GROUP))).astype(F32)
+    v[rng.random((n, GROUP)) < 0.1] = 0.0
+    v[:4] = [[2.0**100], [0.0], [2.0**-100], [2.0**100]]
+    # counts at 0, just below and past the timeout, and where float32 stops
+    # counting
+    pcount = rng.choice(np.array([0, 1, 900, 939, 940, 941, 5000, 2**24],
+                                 F32), n)
+    clocks = rng.choice(CLOCKS[clock], n)
+    chosen = group_positive(env, v, clocks, etu, w0, w1)
+    assert chosen.sum() > n // 50
+    e = env[chosen]
+    steps = float_counter_group(e, pcount[chosen], v[chosen], clocks[chosen],
+                                etu, silence, w0, w1)
+    assert ((steps > 0) & np.isfinite(steps)).all(), name
+    before = np.concatenate([e[:, None], steps[:, :-1]], 1)
+    for k in range(GROUP):
+        assert_same(v[chosen][:, k], before[:, k])
+
+
+# The mod_depth warps of v2_scan_kernel and serial_probe_kernel take
+# condition_step.cuh::cond_mod_depth_split: +0 without a divide where the
+# numerator env - clamp(v, 0, env) is +0 and env > 0, the divide otherwise.
+# Mirrored here and held to the plain formula (experiments.common
+# .mod_depth, the plain versions' own) bit for bit.
+def mod_depth_split(v, env):
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        c = np.where(np.isnan(v) | np.isnan(env), F32(np.nan),
+                     np.fmin(v, env)).astype(F32)
+        c = np.where(np.isnan(c), c, np.fmax(c, F32(0))).astype(F32)
+        num = (env - c).astype(F32)
+        zero = (num == 0) & (env > 0)
+        q = (np.where(zero, env, num) / env).astype(F32)
+    return np.where(zero, F32(0), q).astype(F32)
+
+
+MD_FAMILIES = {
+    "specials": lambda rng: np.meshgrid(V_VALUES, V_VALUES),
+    "carrier": lambda rng: (
+        rng.uniform(0, 0.4, 50000).astype(F32),
+        rng.uniform(0, 0.4, 50000).astype(F32)),
+    "equal": lambda rng: (np.ldexp(rng.uniform(1, 2, 50000),
+                                   rng.integers(-149, 128, 50000))
+                          .astype(F32),) * 2,
+    "binades": lambda rng: tuple(
+        np.ldexp(rng.uniform(-2, 2, 50000), rng.integers(-149, 128, 50000))
+        .astype(F32) for _ in range(2)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(MD_FAMILIES))
+def test_mod_depth_split_equals_the_quotient(family):
+    import torch
+
+    from nfclab_torch.experiments.common import mod_depth
+
+    v, env = (np.ascontiguousarray(a, F32).ravel()
+              for a in MD_FAMILIES[family](np.random.default_rng(9)))
+    got = mod_depth_split(v, env)
+    want = mod_depth(torch.from_numpy(v), torch.from_numpy(env)).numpy()
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), (v[~same][:4], env[~same][:4])
+    if family in ("carrier", "equal"):
+        assert (got == 0).any()   # the split takes its case

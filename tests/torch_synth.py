@@ -184,3 +184,19 @@ def boundary_lanes(b: int, t: int, seed: int = 0, binades=(-149, 128),
     v[rest] = rng.choice(np.array(BOUNDARY_SPECIAL_V, np.float32), len(rest))
     x = np.repeat(v[:, None], t, axis=1)
     return env, x
+
+
+def probe_boundary_lanes(lanes: int, t: int, seed: int = 0, lead: int = 100,
+                         binades=(-149, 128), specials: bool = True,
+                         off=None) -> np.ndarray:
+    """[t, lanes] f32 that put the envelope test of the conditioning
+    probes, which start from a zero carry, on its boundary: each lane holds
+    its env0 of boundary_lanes for `lead` steps (the envelope seeds on it
+    and settles within an ulp or two), then its boundary sample v.  With
+    off = (a, b), every 4th lane is 0 on steps [a, b) (the field off, past
+    the silence timeout when b - a exceeds 10 ETU)."""
+    env, x = boundary_lanes(lanes, max(t - lead, 1), seed, binades, specials)
+    out = np.concatenate([np.repeat(env[:, None], lead, 1), x], 1)[:, :t]
+    if off is not None:
+        out[::4, off[0] : off[1]] = 0.0
+    return np.ascontiguousarray(out.T)
