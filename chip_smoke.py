@@ -19,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
    Conditioning must be bit-exact against the C++ oracle on 8 streams, for
    both kernels.  Then both scans on lanes that put the envelope test on
    its boundary (check_boundary: 2**22 streams each, special values, and
-   ragged shapes).  Repeated at 3.2 MS/s.  Then the experiments/ kernels,
+   ragged shapes).  Repeated at 3.2 MS/s.  The experiments/ scans on
+   boundary lanes too, the pair probe equal to the serial one there, and
+   the v2 mask kernel on crafted outputs whose SD tests sit on their
+   boundary (check_mask_boundary).  Then the experiments/ kernels,
    bit-exact against their plain versions: the conditioning probes at one
    group x 4096 samples x 2048 lanes (pair equal to serial), the copy
    probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks of 4096
@@ -57,7 +60,8 @@ Phases (any failure raises and the script exits non-zero):
    copy probe (8192 x 8192, 24 sweeps, 14 outputs; GB/s, which must stay
    under 105% of 3.35 TB/s, beside 24 broadcast torch.mul calls); the
    conditioning probes (65536 samples, 8 chained calls; serial on 2048
-   lanes, pair and serial on 16384; ns/step and GS/s); bench_v2's v2 and
+   lanes, pair and serial on 16384; ns/step and GS/s; the serial probe
+   timed with CUDA events at the pair's shape beside it); bench_v2's v2 and
    prod runs (ms, GS/s, peak memory); the serial probe and the
    conditioning kernel each on the probe's noise and on template lanes
    (2048 x 65536); then each probe kernel against its
@@ -497,6 +501,7 @@ def check_boundary_experiments(dev, errs):
     import torch
 
     from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.experiments import probe_pair_spec as pps
     from nfclab_torch.experiments import probe_serial_floor as psf
     from torch_synth import boundary_lanes, probe_boundary_lanes
 
@@ -543,13 +548,70 @@ def check_boundary_experiments(dev, errs):
         v = torch.from_numpy(np.ascontiguousarray(
             x.reshape(t, g, lanes).transpose(1, 0, 2))).to(dev)
         what = f"boundary, {g} x {t} x {lanes}"
-        for a, w in zip(psf.serial_probe(v), psf.serial_probe_plain(v)):
+        serial = psf.serial_probe(v)
+        for a, w in zip(serial, psf.serial_probe_plain(v)):
             _hold(errs, "serial_probe", a, w, what)
-        del x, v
+        # the pair probe on the even part: equal to the serial probe there
+        # (a causal chain) and to its own plain version
+        ve = v[:, : t - t % 2].contiguous()
+        for a, w, p in zip(pps.pair_probe(ve), serial,
+                           pps.pair_probe_plain(ve)):
+            _hold(errs, "pair_probe", a, w[:, : t - t % 2], what)
+            _hold(errs, "pair_probe", a, p, what)
+        del x, v, ve, serial
     torch.cuda.synchronize()
-    log(f"serial_probe == plain (bit-exact) on boundary lanes: 2 x 137 x "
+    log(f"serial_probe == plain and pair_probe == serial_probe == plain "
+        f"(bit-exact, pair on the even part) on boundary lanes: 2 x 137 x "
         f"999, 1 x 5 x 33, 1 x 1200 x 2048 with zeros, 1 x 116 x "
         f"{BOUNDARY_PROBE} positive")
+    check_mask_boundary(dev, errs)
+
+
+def check_mask_boundary(dev, errs):
+    """v2_mask_kernel on crafted scan outputs whose SD numerators sit on
+    their divide-free test's boundary (torch_synth.mask_boundary_out: -2..2
+    ulps around p2 * m(y) in every binade of env, signed, special envelopes
+    one stream in 16), bit-exact against its plain version, under three
+    sets of mask parameters (power_thr -1 and 0, so that zero, negative
+    and subnormal envelopes pass the gate and their tests are decided;
+    then the defaults): a span boundary and a ragged span (2600 rows), B
+    not a multiple of 4 (4-byte staging), T below the largest lag (every
+    V lookback before the chunk), clock bases at 0, 95 and the int32
+    guard.  First the library's mask geometry against the binding's."""
+    import torch
+
+    from nfclab_torch.experiments import fused_v2 as v2
+    from nfclab_torch.kernels import fused_v2 as kv
+    from nfclab_torch.kernels.fused import library
+    from torch_synth import mask_boundary_out
+
+    got = kv.library_mask_geometry(library())
+    if got != (kv.mask_geometry(), kv.mask_smem()):
+        raise AssertionError(f"v2_mask_kernel geometry {got} != the "
+                             f"binding's {kv.mask_geometry()}, "
+                             f"{kv.mask_smem()}")
+    mrows = v2.mask_state_rows().to(dev)
+    top = 2**31 - 2 * v2.RBV_RING
+    for i, (case, mp, t, b, base) in enumerate((
+            ("a", (-1.0, 0.75, 0.10, 0.50, 0.50), 2600, 8195, 0),
+            ("f", (0.0, 0.75, 0.10, 0.50, 0.50), 700, 8192, top - 700),
+            ("a", (0.01, 0.75, 0.10, 0.50, 0.50), 300, 4096, 1000),
+            ("f", (-1.0, 1.0, 0.10, 0.25, 1.0), 4196, 1024, 95))):
+        out, st = (torch.from_numpy(a).to(dev)
+                   for a in mask_boundary_out(t, b, 200 + i, case, mp))
+        out_k, so_k = out.clone(), torch.zeros_like(st)
+        v2.v2_mask(out_k, st, so_k, base, mp)
+        so_p = torch.zeros_like(st)
+        v2._mask_plain(out, st, so_p, base, mp)
+        what = f"mask boundary {case}, {b} x {t}, base {base}, mp {mp}"
+        _hold(errs, "fused_v2_mask", out_k[-1], out[-1], what)
+        _hold(errs, "fused_v2_mask", so_k[mrows], so_p[mrows], what)
+        del out, st, out_k, so_k, so_p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("fused_v2_mask == plain (bit-exact) on SD-boundary outputs: 8195 x "
+        "2600, 8192 x 700 at the int32 guard, 4096 x 300, 1024 x 4196; "
+        f"geometry {got}")
 
 
 def check_condition_main_shape(dev, caps, errs):
@@ -715,7 +777,7 @@ def check_main_shape(dev, caps, errs):
 
 
 SCANS = ("ff_scan_kernel", "cond_scan_kernel", "v2_scan_kernel",
-         "serial_probe_kernel")
+         "serial_probe_kernel", "pair_probe_kernel", "v2_mask_kernel")
 
 
 def scan_resources(kbuild) -> dict:
@@ -771,11 +833,14 @@ def log_scan_resources(kbuild) -> dict:
     dyn = {"ff_scan_kernel": kf.scan_smem(ff._layout(ff.kernel_plan(RATE))
                                           .ring_rows),
            "cond_scan_kernel": 0, "v2_scan_kernel": kv.scan_smem(),
-           "serial_probe_kernel": 0}
+           "serial_probe_kernel": 0, "pair_probe_kernel": 0,
+           "v2_mask_kernel": kv.mask_smem()}
     threads = {"ff_scan_kernel": kf.SCAN_THREADS,
                "cond_scan_kernel": kc.THREADS,
                "v2_scan_kernel": kv.SCAN_THREADS,
-               "serial_probe_kernel": kp.SERIAL_THREADS}
+               "serial_probe_kernel": kp.SERIAL_THREADS,
+               "pair_probe_kernel": kp.PAIR_THREADS,
+               "v2_mask_kernel": kv.MASK_THREADS}
     for k in SCANS:
         r = res.setdefault(k, {"registers": 0, "spill_bytes": 0,
                                "static_smem": 0})
@@ -1134,6 +1199,10 @@ def check_v2(dev, streams, chunk, errs, seed, timed=False):
     t["scan_bound"] = _bound(60 * n + 2 * (v2.NSTATE - n_mrows) * row_b,
                              V2_SCAN_OPS * n)
     t["mask_bound"] = _bound(4 * n + 2 * n_mrows * row_b, V2_MASK_OPS * n)
+    # the floor of the two-kernel split: the mask kernel also reads env and
+    # its five lookback channels once (24 B a sample)
+    t["mask_two_kernel_floor"] = _bound(28 * n + 2 * n_mrows * row_b,
+                                        V2_MASK_OPS * n)
     return t
 
 
@@ -1309,6 +1378,9 @@ def run_experiments(dev, errs, tpls):
             ("pair_probe", 8, pps.pair_probe, pps.pair_probe_plain)):
         xp = psf.probe_input(g, psf.T_PROBE, psf.SUB, dev)
         ms = _event_ms(lambda: probe(xp), 3)
+        # the serial probe at the pair's shape, beside it
+        serial_ms = (_event_ms(lambda: psf.serial_probe(xp), 3)
+                     if name == "pair_probe" else None)
         got = probe(xp)
         if name == "pair_probe":
             for a, b in zip(got, psf.serial_probe(xp)):
@@ -1328,6 +1400,8 @@ def run_experiments(dev, errs, tpls):
         kt[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     "ns_per_step": ms * 1e6 / psf.T_PROBE,
                     "bound": _bound(24 * n, PROBE_OPS * n)}
+        if serial_ms is not None:
+            kt[name]["serial_ms_at_this_shape"] = serial_ms
         del xp, got, want
         torch.cuda.empty_cache()
 
@@ -1354,6 +1428,7 @@ def run_experiments(dev, errs, tpls):
             "ms": t[f"{key}_ms"], "plain_ms": t[f"{key}_plain_ms"],
             "library_ms": None, "ns_per_step": t[f"{key}_ms"] * 1e6 / V2_CHUNK,
             "bound": t[f"{key}_bound"]}
+    kt["fused_v2_mask"]["two_kernel_floor_ms"] = t["mask_two_kernel_floor"][0]
     torch.cuda.empty_cache()
     return kt, launches
 
@@ -1467,7 +1542,9 @@ def main(argv=None) -> int:
                     "repair_ms": tk["cond_repair_ms"],
                     "repair_ns_per_step": tk["cond_repair_ns_per_step"]},
                 "fused_v2_scan": resources["v2_scan_kernel"],
-                "serial_probe": resources["serial_probe_kernel"]}
+                "fused_v2_mask": resources["v2_mask_kernel"],
+                "serial_probe": resources["serial_probe_kernel"],
+                "pair_probe": resources["pair_probe_kernel"]}
     kernels = []
     for name, key, src, tpu, n in (
             ("fused_scan", "scan", SOURCE, TPU_KERNEL, launches["fused_scan"]),
@@ -1495,8 +1572,8 @@ def main(argv=None) -> int:
             "launches": elaunch[name], "max_abs_err": errs[name],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": bound,
             "bound_by": by, "library_ms": k["library_ms"],
-            **({"ns_per_step": k["ns_per_step"]} if "ns_per_step" in k
-               else {}),
+            **{key: k[key] for key in ("ns_per_step", "two_kernel_floor_ms",
+                                       "serial_ms_at_this_shape") if key in k},
             **per_step.get(name, {}),
         })
     log(json.dumps({"kernels": kernels}))

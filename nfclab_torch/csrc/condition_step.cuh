@@ -6,12 +6,14 @@
 // conditioning probes (probes.cu).
 //
 // The envelope test comes in two forms with the same result: the
-// quotient cond_env_diff(v, env) < 0.05f, which only pair_probe_kernel
-// still takes (its speculative quotients are what it measures), and
-// cond_env_near / cond_env_near_pos, no divide where env is positive and
-// finite, which every other kernel takes.  CondEnvChain::group lets a warp
-// decide once per group of COND_UNROLL steps that env stays positive and
-// finite, so that the group runs cond_env_near_pos alone, with no branch.
+// quotient cond_env_diff(v, env) < 0.05f, and cond_env_near /
+// cond_env_near_pos, no divide where env is positive and finite, which
+// every kernel takes.  CondEnvChain::group lets a warp decide once per
+// group of COND_UNROLL steps that env stays positive and finite, so that
+// the group runs cond_env_near_pos alone, with no branch; CondPairChain
+// runs the same chain two samples a step, pairwise-speculative.  The mask
+// kernels' SD threshold test RN(n / p2) > y has the same kind of
+// divide-free form (sd_above).
 //
 // The contract is bit-exactness with the C++ oracle, which is built with
 // -ffp-contract=off: every operation is an explicit round-to-nearest
@@ -109,6 +111,54 @@ __device__ __forceinline__ float cond_mod_depth_split(float v, float env)
     const bool zero = (num == 0.0f) & (env > 0.0f);
     const float q = __fdiv_rn(zero ? env : num, env);
     return zero ? 0.0f : q;
+}
+
+// ---------------------------------------------------------------------------
+// The mask kernels' SD threshold test, RN(n / p2) > y, with no divide.
+//
+// For 0 < y < FLT_MAX, RN(x) > y exactly when x > m or, at x = m, the tie
+// rounds up, m = (y + succ(y)) / 2 the midpoint of y and its float
+// successor; a tie goes to the even one of the two, so it rounds up when
+// y's last bit is 1 (subnormal y included: the same grid, the same rule).
+// With x = n / p2 and p2 > 0 that is n > p2 m, or n = p2 m and y odd.  m
+// has at most 25 significant bits and p2 (12, 24, 47, 94) at most 7, so
+// m, p2 m and the comparison are exact in double, from the subnormals to
+// FLT_MAX.  n = +-inf and NaN compare as the quotient would; a negative n
+// or -0 is not above a positive y either way.  y <= 0 (-0 included), y =
+// FLT_MAX, +inf and NaN keep the correctly rounded divide: a rarely taken
+// branch that is part of the semantics.  The A and F tests pass |n| (|RN(n
+// / p2)| = RN(|n| / p2)), the V test its signed n.
+
+// the midpoint m of y and its successor, for 0 < y < FLT_MAX
+__device__ __forceinline__ double sd_midpoint(float y)
+{
+    const float up = __uint_as_float(__float_as_uint(y) + 1u);
+    return __dmul_rn(__dadd_rn((double)y, (double)up), 0.5);
+}
+
+// RN(n / p2) > y for 0 < y < FLT_MAX, mid = sd_midpoint(y)
+__device__ __forceinline__ bool sd_above_pos(float n, float y, double mid,
+                                             double p2)
+{
+    const double lim = __dmul_rn(p2, mid);
+    const double x = (double)n;
+    return (x > lim) | ((x == lim) & ((__float_as_uint(y) & 1u) != 0u));
+}
+
+// y for which sd_above_pos does not hold: the divide decides
+__device__ __forceinline__ bool sd_special(float y)
+{
+    return !(y > 0.0f && y < 0x1.fffffep127f);
+}
+
+// Exactly __fdiv_rn(n, p2) > y, given mid = sd_midpoint(y) and divide =
+// sd_special(y) (or any superset of it)
+__device__ __forceinline__ bool sd_above(float n, float y, double mid,
+                                         double p2, bool divide)
+{
+    bool above = sd_above_pos(n, y, mid, p2);
+    if (__builtin_expect(divide, 0)) above = __fdiv_rn(n, (float)p2) > y;
+    return above;
 }
 
 // ---------------------------------------------------------------------------
@@ -240,8 +290,8 @@ struct CondEnvChain {
     // on.  Any other group (a negative sample, a special value) takes
     // cond_env_near with its rarely taken divide.  `pass` votes yes for a
     // lane past the last stream, whose steps store nothing.
-    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL],
-                                          bool pass = false)
+    __device__ __forceinline__ bool positive_group(
+        const float (&v)[COND_UNROLL], bool pass) const
     {
         bool positive = true, nonneg = true;
 #pragma unroll
@@ -254,7 +304,12 @@ struct CondEnvChain {
         const bool a = weights_a & positive & (env > 0.0f) & small_env;
         const bool b = weights_b & nonneg & (env >= 0x1p-60f) & small_env
                        & cnt.past_seeding();
-        if (__all_sync(__activemask(), a | b | pass)) {
+        return __all_sync(__activemask(), a | b | pass);
+    }
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL],
+                                          bool pass = false)
+    {
+        if (positive_group(v, pass)) {
 #pragma unroll
             for (int k = 0; k < COND_UNROLL; ++k) step<true>(v[k], k);
         } else {
@@ -265,6 +320,74 @@ struct CondEnvChain {
     __device__ __forceinline__ void advance(size_t n) { sink.advance(n); }
     __device__ __forceinline__ void done(int rem) { sink.done(rem); }
 };
+
+// The envelope chain two samples a step, pairwise-speculative
+// (experiments/probe_pair_spec.py, pair_body): the second sample's test is
+// taken against each envelope the first can leave -- the update c_u, the
+// seed v1 and the hold env -- before the first sample is resolved, and the
+// selects then pick one.  The float operations are CondEnvChain::step's,
+// so the bits are too.  The group's vote covers the three candidates: c_u
+// and v1 are envelopes the first step can leave (an update; a seed, which
+// case (b) rules out and case (a) keeps at least 2^-100), and both cases
+// hold under every sequence of decisions, so wherever a candidate can be
+// selected it is positive and finite.  T is even, so the ragged tail is
+// whole pairs: step() holds a pair's first sample until its second.
+template <class Counter, class Sink>
+struct CondPairChain : CondEnvChain<Counter, Sink> {
+    float held;
+
+    template <bool Pos>
+    static __device__ __forceinline__ bool near(float v, float env)
+    {
+        return Pos ? cond_env_near_pos(v, env) : cond_env_near(v, env);
+    }
+
+    template <bool Pos>
+    __device__ __forceinline__ void pair(float v1, float v2, int k)
+    {
+        float &env = this->env;
+        Counter &cnt = this->cnt;
+        // the four tests, none waiting for the first sample's outcome
+        const float c_u = cond_ema(env, this->w0, v1, this->w1);
+        const bool n1 = near<Pos>(v1, env);
+        const bool n_u = near<Pos>(v2, c_u);
+        const bool n_s = near<Pos>(v2, v1);
+        const bool n_h = near<Pos>(v2, env);
+        cnt.tick();
+        const bool u1 = n1 || cnt.expired();
+        const bool s1 = cnt.seeding();
+        const float env1 = u1 ? c_u : (s1 ? v1 : env);
+        const bool n2 = u1 ? n_u : (s1 ? n_s : n_h);
+        cnt.settle(u1);
+        this->sink.put(k, env1, cnt);
+        cnt.tick();
+        const float c2u = cond_ema(env1, this->w0, v2, this->w1);
+        const bool u2 = n2 || cnt.expired();
+        env = u2 ? c2u : (cnt.seeding() ? v2 : env1);
+        cnt.settle(u2);
+        this->sink.put(k + 1, env, cnt);
+    }
+
+    __device__ __forceinline__ void group(const float (&v)[COND_UNROLL],
+                                          bool pass = false)
+    {
+        if (this->positive_group(v, pass)) {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; k += 2) pair<true>(v[k], v[k + 1], k);
+        } else {
+#pragma unroll
+            for (int k = 0; k < COND_UNROLL; k += 2) pair<false>(v[k], v[k + 1], k);
+        }
+    }
+    __device__ __forceinline__ void step(float v, int k)
+    {
+        if (k & 1)
+            pair<false>(held, v, k - 1);
+        else
+            held = v;
+    }
+};
+static_assert(COND_UNROLL % 2 == 0, "a group holds whole pairs");
 
 // IIR DC removal (NfcTech.cpp:56-62) and the deviation EMA (:65-66); the
 // w1 output only where the kernel has one (W1)

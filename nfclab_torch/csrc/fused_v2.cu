@@ -22,14 +22,18 @@
 //                   the value, filtered, squared and product rings live
 //                   there too, rotated to the chunk; carry and sums in
 //                   registers.
-//   v2_mask_kernel  one thread per (row, stream): detect_mask at every
-//                   sample from the box and filtered channels at fixed
-//                   lags, and the state rows the Pallas kernel's mask
-//                   leaves behind -- the rb and rbv rings and carry rows
-//                   5-9 -- each as the value the ring slot last received.
-//                   Lookbacks before the chunk come from the input state's
-//                   rf, rb and rbv rings, at the slot of their absolute
-//                   clock, exactly where the Pallas kernel reads them.
+//   v2_mask_kernel  parallel in time, 32 streams and a span of rows per
+//                   block (described above the kernel): detect_mask at
+//                   every sample from the box and filtered channels at
+//                   fixed lags, each channel staged into a shared ring and
+//                   read from memory once per span, every threshold test
+//                   without a divide; and the state rows the Pallas
+//                   kernel's mask leaves behind -- the rb and rbv rings and
+//                   carry rows 5-9 -- each as the value the ring slot last
+//                   received.  Lookbacks before the chunk come from the
+//                   input state's rf, rb and rbv rings, at the slot of their
+//                   absolute clock, exactly where the Pallas kernel reads
+//                   them.
 //
 // What bounds the scan on this card: it moves 60 bytes per sample (4 in,
 // 56 out across 14 channels), 1.21 ms per 4096 x 16384 samples at
@@ -61,15 +65,17 @@
 // ~108 ns, ~1.78 ms per 4096 x 16384 chunk, ~2.4 TB/s of the ~2.7 TB/s
 // the copy probe reaches; without its per-step stores it takes ~69 ns.
 // Moving the mask out of the loop keeps the 826 rows of rb/rbv rings
-// (3.3 KB per stream) out of shared memory; the mask kernel is
-// time-parallel and reads its lags from L2.
+// (3.3 KB per stream) out of shared memory.  The mask kernel, bound by
+// bytes too, reads env and its five lookback channels once and writes the
+// mask: 28 B a sample, 0.56 ms per 4096 x 16384 at 3.35 TB/s, the floor of
+// the two-kernel split.
 //
 // Numerics: bit-exact with the plain PyTorch version (fused_v2.py of the
 // port): explicit round-to-nearest intrinsics (condition_step.cuh for the
-// conditioning step), `sd = ((b0 - bg) - (bg - b1)) / p2` as a correctly
-// rounded divide, (filt*filt)*10 and (filt*lagged)*10 as two rounded
-// multiplies, never an FMA; the library is built -fmad=false
-// -prec-div=true -ftz=false.  The mask's bit weights are summed as an
+// conditioning step), `|sd| > y` for `sd = ((b0 - bg) - (bg - b1)) / p2`
+// decided exactly without the divide (sd_above), (filt*filt)*10 and
+// (filt*lagged)*10 as two rounded multiplies, never an FMA; the library
+// is built -fmad=false -prec-div=true -ftz=false.  The mask's bit weights are summed as an
 // integer: every partial sum of the weights 1..128 is exact in float32.
 
 #include <cuda_runtime.h>
@@ -109,10 +115,6 @@ enum {
     O_P24X6, O_P47X12, O_P94X24,
     O_MASK,
 };
-
-// the channels the mask looks back on, each with the state ring that
-// holds it before the chunk
-enum { LB_BV47, LB_BV24, LB_BV12, LB_BV94, LB_FILT };
 
 }  // namespace
 
@@ -714,132 +716,344 @@ v2_scan_kernel(const V2Args a)
     }
 }
 
-// channel `which` at c samples before chunk row j: from this chunk's
-// output, or, before the chunk, from the state ring slot of its absolute
-// clock (the slot the Pallas kernel reads)
-__device__ __forceinline__ float v2_lag(const V2Args &a, int which,
-                                        int64_t j, int c, int64_t b)
+// ---------------------------------------------------------------------------
+// v2_mask_kernel: the mask half of the Pallas kernel, parallel in time
+//
+// A block owns 32 streams (128-byte rows, lane = stream) and a span of
+// V2_MASK_SPAN chunk rows, walked in sub-tiles of V2_MASK_TILE rows.  Each
+// of the six channels it reads (env and the five lookback channels) is
+// staged into a shared ring of its own, read from memory once per span:
+// V2_MASK_PRODUCERS producer warps copy each row with cp.async when a
+// sub-tile first needs it, V2_MASK_STAGES sub-tiles ahead, behind a "full"
+// mbarrier per stage (the copies landed) and an "empty" one (the consumer
+// warps are done with the sub-tile).  (One producer warp bounded the
+// kernel, as did sub-tiles of 32 rows; 128-byte bulk copies, one a row,
+// were slower still.)  A
+// channel with lags Lmin..Lmax (V2Lags) gets rows [J - Lmin, J + n - Lmin)
+// for the sub-tile of rows [J, J + n), and the span's first sub-tile also
+// the spread behind them;
+// row r lands at slot r & (P - 1) of a ring of P >= spread + STAGES * TILE
+// slots, so no slot is rewritten before every sub-tile that reads it is
+// done.  Rows before the chunk are copied from the state ring slot of
+// their absolute clock, (base + r) mod R, one int32 modulo a row, at the
+// span's first sub-tile only.  The consumer warps take the sub-tile's rows
+// in turn: every lookback is a shared load at a mask, and every threshold
+// test the divide-free sd_above (condition_step.cuh).  The block of each
+// column's last span then writes the state rows the mask owns (rb, rbv,
+// carry rows 5-9), one int32 modulo a slot.
+
+#define V2_MASK_WARPS 16    // consumers, then the producers
+#define V2_MASK_PRODUCERS 4
+#define V2_MASK_TILE 64     // rows of a sub-tile
+#define V2_MASK_STAGES 2    // sub-tiles in flight
+#define V2_MASK_SPAN 2048   // rows of a block's span, a multiple of the tile
+static_assert(V2_MASK_SPAN % V2_MASK_TILE == 0, "whole sub-tiles in a span");
+
+// the staged channels: output row, least and largest lag, shared ring,
+// state ring (offset, size) holding the channel before the chunk
+enum { MC_ENV, MC_BV47, MC_BV24, MC_BV12, MC_FILT, MC_BV94, MC_N };
+struct V2Lags {
+    int ch, lmin, lmax, ring, off, r;
+};
+__host__ __device__ constexpr V2Lags v2_mask_lags(int c)
 {
-    int ch, off, ring;
-    switch (which) {
-    case LB_BV47: ch = O_BV47; off = S_RB; ring = RB_RING0; break;
-    case LB_BV24: ch = O_BV24; off = S_RB + RB_RING0; ring = RB_RING1; break;
-    case LB_BV12:
-        ch = O_BV12; off = S_RB + RB_RING0 + RB_RING1; ring = RB_RING2; break;
-    case LB_BV94: ch = O_BV94; off = S_RBV; ring = RBV_RING; break;
-    default: ch = O_FILT; off = S_RF; ring = RF_RING; break;
+    return c == MC_ENV ? V2Lags{O_ENV, 0, 0, 128, 0, 1}
+        : c == MC_BV47 ? V2Lags{O_BV47, 0, 47, 256, S_RB, RB_RING0}
+        : c == MC_BV24 ? V2Lags{O_BV24, 0, 117, 256, S_RB + RB_RING0, RB_RING1}
+        : c == MC_BV12 ? V2Lags{O_BV12, 0, 153, 512,
+                                S_RB + RB_RING0 + RB_RING1, RB_RING2}
+        : c == MC_FILT ? V2Lags{O_FILT, 0, 94, 256, S_RF, RF_RING}
+                       : V2Lags{O_BV94, 378, 473, 256, S_RBV, RBV_RING};
+}
+__host__ __device__ constexpr int v2_mask_ring_base(int c)
+{
+    return c == 0 ? 0 : v2_mask_ring_base(c - 1) + v2_mask_lags(c - 1).ring;
+}
+constexpr int V2_MASK_RING_ROWS = v2_mask_ring_base(MC_N);
+static_assert(V2_MASK_RING_ROWS == 128 + 4 * 256 + 512, "the rings' rows");
+#define V2_MASK_RING_OK(c)                                                   \
+    static_assert((v2_mask_lags(c).ring & (v2_mask_lags(c).ring - 1)) == 0   \
+                  && v2_mask_lags(c).ring >= v2_mask_lags(c).lmax            \
+                     - v2_mask_lags(c).lmin + V2_MASK_STAGES * V2_MASK_TILE  \
+                  && v2_mask_lags(c).r > v2_mask_lags(c).lmax,               \
+                  "ring of channel " #c)
+V2_MASK_RING_OK(MC_ENV);
+V2_MASK_RING_OK(MC_BV47);
+V2_MASK_RING_OK(MC_BV24);
+V2_MASK_RING_OK(MC_BV12);
+V2_MASK_RING_OK(MC_FILT);
+V2_MASK_RING_OK(MC_BV94);
+// barriers (full, empty per stage, padded to 16 B), then the rings
+constexpr int64_t V2_MASK_SMEM =
+    ((2 * V2_MASK_STAGES * 8 + 15) / 16) * 16 + 128LL * V2_MASK_RING_ROWS;
+
+// the slot of clock t in a state ring of r slots (t >= -r)
+__device__ __forceinline__ int v2_state_slot(int32_t t, int r)
+{
+    const int s = t % r;
+    return s < 0 ? s + r : s;
+}
+
+// row r of channel c at this block's 32 columns: a chunk row of `out`, or
+// before the chunk the state ring slot of its clock
+template <int C>
+__device__ __forceinline__ const float *v2_mask_src(const V2Args &a, int r,
+                                                    int64_t b0)
+{
+    constexpr V2Lags g = v2_mask_lags(C);
+    if (r >= 0) return a.out + ((int64_t)g.ch * a.T + r) * a.B + b0;
+    return a.state_in + (int64_t)(g.off + v2_state_slot(a.base + r, g.r)) * a.B
+           + b0;
+}
+
+// the rows of channel c that sub-tile [J, J + n) stages: [J - lmin,
+// J + n - lmin), and in a span's first sub-tile also the spread behind
+template <int C>
+__device__ __forceinline__ int v2_mask_lo(int J, bool first)
+{
+    constexpr V2Lags g = v2_mask_lags(C);
+    return first ? J - g.lmax : J - g.lmin;
+}
+template <int C>
+__device__ __forceinline__ int v2_mask_hi(int J, int n)
+{
+    return J + n - v2_mask_lags(C).lmin;
+}
+
+// Producer warp p's copies of channel c's rows [lo, hi) into its ring:
+// rows before the chunk (a first span's first sub-tile) from their state
+// slots, one 4-byte copy a lane and row; chunk rows as a pointer walk,
+// 16-byte copies where every row of the block's columns is 16-byte aligned
+// (lane: column (lane & 7) * 4 of every 4th row), else one 4-byte column a
+// lane.  The V2_MASK_PRODUCERS warps take the rows in turn.
+template <int C>
+__device__ __forceinline__ void v2_mask_stage(const V2Args &a, float *rings,
+                                              int lo, int hi, int64_t b0,
+                                              bool wide, int p, int lane)
+{
+    constexpr V2Lags g = v2_mask_lags(C);
+    constexpr int NP = V2_MASK_PRODUCERS;
+    float *ring = rings + v2_mask_ring_base(C) * 32;
+    const bool lane_ok = b0 + lane < a.B;
+    const int r0 = hi < 0 ? hi : 0;
+    for (int r = lo + p; r < r0; r += NP)
+        if (lane_ok)
+            cp_async4(ring + (r & (g.ring - 1)) * 32 + lane,
+                      v2_mask_src<C>(a, r, b0) + lane);
+    lo = lo > 0 ? lo : 0;
+    if (lo >= hi) return;
+    if (wide) {
+        const int col = (lane & 7) * 4;
+        if (b0 + col >= a.B) return;
+        const size_t step = 4 * NP * (size_t)a.B;
+        int r = lo + 4 * p + (lane >> 3);
+        const float *src = v2_mask_src<C>(a, lo, b0) + (r - lo) * a.B + col;
+        for (; r < hi; r += 4 * NP, src += step)
+            cp_async16(ring + (r & (g.ring - 1)) * 32 + col, src);
+    } else if (lane_ok) {
+        const float *src = v2_mask_src<C>(a, lo, b0) + p * a.B + lane;
+        for (int r = lo + p; r < hi; r += NP, src += NP * a.B)
+            cp_async4(ring + (r & (g.ring - 1)) * 32 + lane, src);
     }
-    const int64_t i = j - c;
-    if (i >= 0) return a.out[((int64_t)ch * a.T + i) * a.B + b];
-    int64_t slot = ((int64_t)a.base + i) % ring;
-    if (slot < 0) slot += ring;
-    return a.state_in[(off + slot) * a.B + b];
 }
 
-// sd = ((b0 - bg) - (bg - b1)) / p2 with b0 = B(t-d), bg = B(t-d-gap) and
-// b1 = B(t-d-1), which the Pallas kernel carries from the previous step:
-// at the chunk's first sample b1 is the state's carry row
-__device__ __forceinline__ float v2_sd(const V2Args &a, int which, int64_t j,
-                                       int d, int gap, int carry_row,
-                                       float p2, int64_t b)
+template <int C>
+__device__ __forceinline__ void v2_mask_stage_tile(const V2Args &a,
+                                                   float *rings, int J, int n,
+                                                   bool first, int64_t b0,
+                                                   bool wide, int p, int lane)
 {
-    const float b0 = v2_lag(a, which, j, d, b);
-    const float b1 = j > 0 ? v2_lag(a, which, j, d + 1, b)
-                           : a.state_in[(int64_t)carry_row * a.B + b];
-    const float bg = v2_lag(a, which, j, d + gap, b);
-    return __fdiv_rn(__fsub_rn(__fsub_rn(b0, bg), __fsub_rn(bg, b1)), p2);
+    v2_mask_stage<C>(a, rings, v2_mask_lo<C>(J, first), v2_mask_hi<C>(J, n),
+                     b0, wide, p, lane);
 }
 
-__device__ __forceinline__ int64_t v2_mod(int64_t x, int m)
+// channel c at lag l behind row j of stream b, from its ring at this
+// lane's column
+template <int C>
+__device__ __forceinline__ float v2_mask_at(const V2Args &a,
+                                            const float *rings, int64_t b,
+                                            int j, int l)
 {
-    const int64_t r = x % m;
-    return r < 0 ? r + m : r;
+    constexpr V2Lags g = v2_mask_lags(C);
+    return rings[(v2_mask_ring_base(C) + ((j - l) & (g.ring - 1))) * 32];
 }
 
-__global__ void v2_mask_kernel(const V2Args a)
+// |sd| > y for sd = ((b0 - bg) - (bg - b1)) / p2
+__device__ __forceinline__ bool v2_sd_above(float b0, float bg, float b1,
+                                            double p2, float y, double mid,
+                                            bool divide)
 {
-    const int64_t B = a.B;
-    const int64_t T = a.T;
-    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= (T + RB_TOTAL + RBV_RING + 5) * B) return;
-    const int64_t r = idx / B;
-    const int64_t b = idx - r * B;
+    const float n = __fsub_rn(__fsub_rn(b0, bg), __fsub_rn(bg, b1));
+    return sd_above(fabsf(n), y, mid, p2, divide);
+}
 
-    if (r >= T) {
-        // state rows: ring slot s ends holding the value of the last clock
-        // of the chunk that is s modulo the ring (or keeps its input)
-        const int64_t last = T - 1;
-        const int64_t t_last = (int64_t)a.base + last;
-        int64_t k = r - T;
-        int64_t row;
-        float x;
-        if (k < RB_TOTAL) {
-            int which, ring;
-            int64_t s;
-            if (k < RB_RING0) {
-                which = LB_BV47; ring = RB_RING0; s = k;
-            } else if (k < RB_RING0 + RB_RING1) {
-                which = LB_BV24; ring = RB_RING1; s = k - RB_RING0;
-            } else {
-                which = LB_BV12; ring = RB_RING2; s = k - RB_RING0 - RB_RING1;
-            }
-            x = v2_lag(a, which, last, (int)v2_mod(t_last - s, ring), b);
-            row = S_RB + k;
-        } else if (k < RB_TOTAL + RBV_RING) {
-            const int64_t s = k - RB_TOTAL;
-            x = v2_lag(a, LB_BV94, last, (int)v2_mod(t_last - s, RBV_RING), b);
-            row = S_RBV + s;
-        } else {
-            // carry rows 5-7: the last step's bv47, bv24, bv12; rows 8-9:
-            // its b0 of the NFC-A rates at d = 94 (bv24) and 141 (bv12)
-            k -= RB_TOTAL + RBV_RING;
-            switch (k) {
-            case 0: x = v2_lag(a, LB_BV47, last, 0, b); break;
-            case 1: x = v2_lag(a, LB_BV24, last, 0, b); break;
-            case 2: x = v2_lag(a, LB_BV12, last, 0, b); break;
-            case 3: x = v2_lag(a, LB_BV24, last, 94, b); break;
-            default: x = v2_lag(a, LB_BV12, last, 141, b); break;
-            }
-            row = 5 + k;
-        }
-        a.state_out[row * B + b] = x;
-        return;
-    }
-
-    const int64_t j = r;
-    const float env = a.out[((int64_t)O_ENV * T + j) * B + b];
+// detect_mask at chunk row j of this lane's stream; carry: the state's
+// carry rows 5-9, b1 at the chunk's first row
+__device__ __forceinline__ float v2_mask_row(const V2Args &a,
+                                             const float *rings, int64_t b,
+                                             int j, const float (&carry)[5])
+{
+    const auto bv47 = [&](int l) { return v2_mask_at<MC_BV47>(a, rings, b, j, l); };
+    const auto bv24 = [&](int l) { return v2_mask_at<MC_BV24>(a, rings, b, j, l); };
+    const auto bv12 = [&](int l) { return v2_mask_at<MC_BV12>(a, rings, b, j, l); };
+    const auto filt = [&](int l) { return v2_mask_at<MC_FILT>(a, rings, b, j, l); };
+    const auto bv94 = [&](int l) { return v2_mask_at<MC_BV94>(a, rings, b, j, l); };
+    const float env = v2_mask_at<MC_ENV>(a, rings, b, j, 0);
     const bool power_ok = env >= a.power_thr;
-    int m = 0;
+    const bool j0 = j == 0;
     // NFC-A, |SD| above the correlation threshold (NfcA.cpp:224-291):
     // (d, gap, p2) = (0, 47, 47) on bv47, (94, 23, 24) on bv24,
-    // (141, 12, 12) on bv12
-    const float min_corr_a = __fmul_rn(a.a_thr, env);
-    if (power_ok && fabsf(v2_sd(a, LB_BV47, j, 0, 47, 5, 47.0f, b)) > min_corr_a)
-        m += 1;
-    if (power_ok && fabsf(v2_sd(a, LB_BV24, j, 94, 23, 8, 24.0f, b)) > min_corr_a)
-        m += 2;
-    if (power_ok && fabsf(v2_sd(a, LB_BV12, j, 141, 12, 9, 12.0f, b)) > min_corr_a)
-        m += 4;
-    // NFC-F: the same SD family at d = 0 over bv24 and bv12
-    const float min_corr_f = __fmul_rn(a.f_thr, env);
-    if (power_ok && fabsf(v2_sd(a, LB_BV24, j, 0, 23, 6, 24.0f, b)) > min_corr_f)
-        m += 32;
-    if (power_ok && fabsf(v2_sd(a, LB_BV12, j, 0, 12, 7, 12.0f, b)) > min_corr_f)
-        m += 64;
+    // (141, 12, 12) on bv12; NFC-F the same family at d = 0 over bv24 and
+    // bv12.  b1 = B(t-d-1) is the carry row at the chunk's first row.
+    const float ya = __fmul_rn(a.a_thr, env);
+    const float yf = __fmul_rn(a.f_thr, env);
+    const double ma = sd_midpoint(ya), mf = sd_midpoint(yf);
+    const bool da = power_ok & sd_special(ya), df = power_ok & sd_special(yf);
+    int m = 0;
+    m += v2_sd_above(bv47(0), bv47(47), j0 ? carry[0] : bv47(1), 47.0, ya,
+                     ma, da) ? 1 : 0;
+    m += v2_sd_above(bv24(94), bv24(117), j0 ? carry[3] : bv24(95), 24.0, ya,
+                     ma, da) ? 2 : 0;
+    m += v2_sd_above(bv12(141), bv12(153), j0 ? carry[4] : bv12(142), 12.0,
+                     ya, ma, da) ? 4 : 0;
+    m += v2_sd_above(bv24(0), bv24(23), j0 ? carry[1] : bv24(1), 24.0, yf,
+                     mf, df) ? 32 : 0;
+    m += v2_sd_above(bv12(0), bv12(12), j0 ? carry[2] : bv12(1), 12.0, yf,
+                     mf, df) ? 64 : 0;
     // NFC-B: falling edge filt[t-d] < -(minDeep*env) at d = 0, 94
     // (NfcB.cpp:283)
     const float edge_b = -__fmul_rn(a.b_min_deep, env);
-    if (power_ok && v2_lag(a, LB_FILT, j, 0, b) < edge_b) m += 8;
-    if (power_ok && v2_lag(a, LB_FILT, j, 94, b) < edge_b) m += 16;
+    m += filt(0) < edge_b ? 8 : 0;
+    m += filt(94) < edge_b ? 16 : 0;
     // NFC-V: signed SD = (B(t-d-gap) - B(t-d)) / p2 over bv94, d = 378,
     // gap = 95 (NfcV.cpp:236-435)
-    {
-        const float u0 = v2_lag(a, LB_BV94, j, 378, b);
-        const float ug = v2_lag(a, LB_BV94, j, 378 + 95, b);
-        const float sd_v = __fdiv_rn(__fsub_rn(ug, u0), 94.0f);
-        if (power_ok && sd_v > __fmul_rn(a.v_thr, env)) m += 128;
+    const float yv = __fmul_rn(a.v_thr, env);
+    m += sd_above(__fsub_rn(bv94(473), bv94(378)), yv, sd_midpoint(yv), 94.0,
+                  power_ok & sd_special(yv)) ? 128 : 0;
+    // every bit is gated by env >= power_thr
+    return power_ok ? (float)m : 0.0f;
+}
+
+// channel c at lag l behind the chunk's last row, from `out` or the state
+// ring slot of its clock (the state rows' pass)
+template <int C>
+__device__ __forceinline__ float v2_mask_last(const V2Args &a, int l,
+                                              int64_t b)
+{
+    return v2_mask_src<C>(a, (int)a.T - 1 - l, b)[0];
+}
+
+// state ring slot s (of r) ends holding the value of the chunk's last clock
+// that is s modulo r, or keeps its input
+template <int C>
+__device__ __forceinline__ void v2_mask_ring_out(const V2Args &a, int off,
+                                                 int r, int k, int64_t b)
+{
+    const int32_t t_last = a.base + (int32_t)a.T - 1;
+    const int d = v2_state_slot(t_last - k, r);
+    a.state_out[(int64_t)(off + k) * a.B + b] = v2_mask_last<C>(a, d, b);
+}
+
+__device__ __forceinline__ void v2_mask_state_rows(const V2Args &a, int w,
+                                                   int64_t b)
+{
+    for (int k = w; k < RB_TOTAL + RBV_RING + 5; k += V2_MASK_WARPS) {
+        if (k < RB_RING0) {
+            v2_mask_ring_out<MC_BV47>(a, S_RB, RB_RING0, k, b);
+        } else if (k < RB_RING0 + RB_RING1) {
+            v2_mask_ring_out<MC_BV24>(a, S_RB + RB_RING0, RB_RING1,
+                                      k - RB_RING0, b);
+        } else if (k < RB_TOTAL) {
+            v2_mask_ring_out<MC_BV12>(a, S_RB + RB_RING0 + RB_RING1, RB_RING2,
+                                      k - RB_RING0 - RB_RING1, b);
+        } else if (k < RB_TOTAL + RBV_RING) {
+            v2_mask_ring_out<MC_BV94>(a, S_RBV, RBV_RING, k - RB_TOTAL, b);
+        } else {
+            // carry rows 5-7: the last step's bv47, bv24, bv12; rows 8-9:
+            // its b0 of the NFC-A rates at d = 94 (bv24) and 141 (bv12)
+            const int c = k - RB_TOTAL - RBV_RING;
+            const float x = c == 0 ? v2_mask_last<MC_BV47>(a, 0, b)
+                : c == 1 ? v2_mask_last<MC_BV24>(a, 0, b)
+                : c == 2 ? v2_mask_last<MC_BV12>(a, 0, b)
+                : c == 3 ? v2_mask_last<MC_BV24>(a, 94, b)
+                         : v2_mask_last<MC_BV12>(a, 141, b);
+            a.state_out[(int64_t)(5 + c) * a.B + b] = x;
+        }
     }
-    a.out[((int64_t)O_MASK * T + j) * B + b] = (float)m;
+}
+
+__global__ void __launch_bounds__((V2_MASK_WARPS + V2_MASK_PRODUCERS) * 32)
+v2_mask_kernel(const V2Args a)
+{
+    uint64_t *full = reinterpret_cast<uint64_t *>(v2_dyn_smem);
+    uint64_t *empty = full + V2_MASK_STAGES;
+    float *rings = reinterpret_cast<float *>(
+        v2_dyn_smem + ((2 * V2_MASK_STAGES * 8 + 15) / 16) * 16);
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int64_t b0 = (int64_t)blockIdx.x * 32;
+    const int64_t b = b0 + lane;
+    const bool valid = b < a.B;
+    const int span0 = (int)blockIdx.y * V2_MASK_SPAN;
+    const int span1 = (int)(a.T - span0 < V2_MASK_SPAN ? a.T
+                                                        : span0 + V2_MASK_SPAN);
+    const int ntiles = (span1 - span0 + V2_MASK_TILE - 1) / V2_MASK_TILE;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < V2_MASK_STAGES; ++s) {
+            mbar_init(full + s, 32 * V2_MASK_PRODUCERS);
+            mbar_init(empty + s, V2_MASK_WARPS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp >= V2_MASK_WARPS) {
+        const int p = warp - V2_MASK_WARPS;
+        const bool wide = (a.B % 4 == 0) && ((uintptr_t)a.out % 16 == 0)
+                          && ((uintptr_t)a.state_in % 16 == 0);
+        for (int i = 0; i < ntiles; ++i) {
+            const int s = i % V2_MASK_STAGES;
+            if (i >= V2_MASK_STAGES)
+                mbar_wait(empty + s, (uint32_t)(i / V2_MASK_STAGES - 1) & 1u);
+            const int J = span0 + i * V2_MASK_TILE;
+            const int n = span1 - J < V2_MASK_TILE ? span1 - J : V2_MASK_TILE;
+            const bool first = i == 0;
+#define V2_MASK_STAGE(c) \
+    v2_mask_stage_tile<c>(a, rings, J, n, first, b0, wide, p, lane)
+            V2_MASK_STAGE(MC_ENV);
+            V2_MASK_STAGE(MC_BV47);
+            V2_MASK_STAGE(MC_BV24);
+            V2_MASK_STAGE(MC_BV12);
+            V2_MASK_STAGE(MC_FILT);
+            V2_MASK_STAGE(MC_BV94);
+#undef V2_MASK_STAGE
+            cp_async_arrive(full + s);
+        }
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        return;
+    }
+
+    float carry[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c)
+        carry[c] = (span0 == 0 && valid) ? a.state_in[(5 + c) * a.B + b]
+                                         : 0.0f;
+    float *mask = a.out + (int64_t)O_MASK * a.T * a.B + b;
+    const float *col = rings + lane;
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % V2_MASK_STAGES;
+        mbar_wait(full + s, (uint32_t)(i / V2_MASK_STAGES) & 1u);
+        const int J = span0 + i * V2_MASK_TILE;
+        const int n = span1 - J < V2_MASK_TILE ? span1 - J : V2_MASK_TILE;
+        for (int k = warp; k < n; k += V2_MASK_WARPS) {
+            const float m = v2_mask_row(a, col, b, J + k, carry);
+            if (valid) __stcg(mask + (int64_t)(J + k) * a.B, m);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+    }
+    if (span1 == a.T && valid) v2_mask_state_rows(a, warp, b);
 }
 
 extern "C" {
@@ -874,13 +1088,48 @@ int nfclab_v2_scan(const V2Args *a, int device, int threads,
     return (int)cudaGetLastError();
 }
 
+int64_t nfclab_v2_mask_smem(void) { return V2_MASK_SMEM; }
+
+// The mask kernel's geometry, for the binding to hold its mirror to:
+// consumer and producer warps, sub-tile rows, stages, span rows, then per
+// staged channel (env, bv47, bv24, bv12, filtered, bv94) its least and
+// largest lag, its shared ring and its state ring (0 for env).  Returns the count written
+// (at most n).
+int nfclab_v2_mask_geometry(int32_t *g, int n)
+{
+    int32_t v[5 + 4 * MC_N] = {V2_MASK_WARPS, V2_MASK_PRODUCERS, V2_MASK_TILE,
+                               V2_MASK_STAGES, V2_MASK_SPAN};
+    for (int c = 0; c < MC_N; ++c) {
+        const V2Lags l = v2_mask_lags(c);
+        v[5 + 4 * c] = l.lmin;
+        v[6 + 4 * c] = l.lmax;
+        v[7 + 4 * c] = l.ring;
+        v[8 + 4 * c] = c == MC_ENV ? 0 : l.r;
+    }
+    const int m = n < 5 + 4 * MC_N ? n : 5 + 4 * MC_N;
+    for (int i = 0; i < m; ++i) g[i] = v[i];
+    return m;
+}
+
+// Queues v2_mask_kernel.  Refused (cudaErrorInvalidValue) unless `threads`
+// is (V2_MASK_WARPS + V2_MASK_PRODUCERS) * 32, 1 <= B <= 2^25, 1 <= T <=
+// 65535 spans, and
+// the clock stays in int32 as for the scan.
 int nfclab_v2_mask(const V2Args *a, int device, int threads, void *stream)
 {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    const int64_t total = (a->T + RB_TOTAL + RBV_RING + 5) * a->B;
-    const int64_t blocks = (total + threads - 1) / threads;
-    v2_mask_kernel<<<(unsigned)blocks, threads, 0,
+    const int64_t spans = (a->T + V2_MASK_SPAN - 1) / V2_MASK_SPAN;
+    if (threads != (V2_MASK_WARPS + V2_MASK_PRODUCERS) * 32 || a->B < 1
+        || a->B > (1LL << 25) || a->T < 1 || spans > 65535 || a->base < 0
+        || (int64_t)a->base + a->T + 2 * RBV_RING > (1LL << 31))
+        return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(v2_mask_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)V2_MASK_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((a->B + 31) / 32), (unsigned)spans);
+    v2_mask_kernel<<<grid, threads, (size_t)V2_MASK_SMEM,
                      (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }

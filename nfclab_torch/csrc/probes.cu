@@ -13,9 +13,9 @@
 //   pair_probe_kernel    replaces experiments/probe_pair_spec.py::kernel in
 //                        its MODE=pair form (pair_body): the same function,
 //                        two samples a step, with the second sample's
-//                        envelope quotient computed for all three outcomes
-//                        of the first (update, seed, hold) before the first
-//                        is resolved.
+//                        envelope test taken for all three outcomes of the
+//                        first (update, seed, hold) before the first is
+//                        resolved.
 //
 // The copy probe is bound by bytes: each sweep reads x once and writes
 // NOUT outputs, 4 * (1 + NOUT) bytes per element, against 3.35 TB/s.  The
@@ -28,26 +28,28 @@
 // sample, 4 in and 20 out: 0.96 ms per 1 x 65536 x 2048 at 3.35 TB/s) or
 // operations (~25 per sample): the recurrence is serial in time, so a lane
 // is a thread, 2048 lanes are 64 blocks of 32 on 64 of the 132 SMs, and
-// each walks T dependent steps.  The probe exists to read that floor, so
-// serial_probe_kernel takes the design cond_scan_kernel takes:
+// each walks T dependent steps.  The probes exist to read that floor, so
+// both take the design cond_scan_kernel takes:
 //   - No divide in the envelope test: |v - env| <= m * env in exact double
 //     arithmetic (cond_env_near_pos).
 //   - No branch in a step: a warp vote once per group of COND_UNROLL steps
-//     (CondEnvChain::group) decides that env stays positive and finite;
-//     the cases hold for the probe's float count and call-local clock.
+//     (CondEnvChain::positive_group) decides that env stays positive and
+//     finite; the cases hold for the probe's float count and call-local
+//     clock.
 //   - One warp per chain (envelope + count; w1 -> filt -> mdev; avg), so
 //     the envelope warp issues only its own chain and one store a step.
-//   - mod_depth's divide, which feeds nothing back, off the chain: a
-//     fourth warp takes env from the envelope warp through a shared ring
-//     of PROBE_ENV_STAGES groups behind mbarriers, and divides there.
-//     (Recomputing the envelope would put the divide's slow-path branch
-//     back beside a chain; a branchless divide needs its own proof.)
+//   - mod_depth's divide, which feeds nothing back, off the chain: two
+//     warps take env from the envelope warp through a shared ring of
+//     PROBE_ENV_STAGES groups behind mbarriers, and divide there, skipping
+//     the zero numerator (cond_mod_depth_split).
 //   - Samples loaded COND_UNROLL ahead in registers, 32-bit offsets, whole
 //     groups without bounds checks and the ragged tail apart (cond_run).
-// What still bounds it: the envelope chain's latency per step, as in
-// cond_scan_kernel, on 64 SMs.  pair_probe_kernel keeps the earlier
-// design, one warp a block with its three speculative quotients as
-// separate divides, since its speculation is what it measures.
+// The two differ only in the envelope warp's chain: serial_probe_kernel
+// steps one sample at a time (CondEnvChain), pair_probe_kernel two, with
+// the second sample's test taken for each of the first's outcomes before
+// the first is resolved (CondPairChain): the speculation its experiment
+// measures, now against the same design without it.  What still bounds
+// them: the envelope chain's latency per step, on 64 SMs at one group.
 
 // Layout: value and outputs are [G, T, L] f32, lane l of group g at
 // (g * T + t) * L + l, so a warp's 32 lanes load and store 32 neighbouring
@@ -61,11 +63,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "condition_step.cuh"
 #include "smem_stage.cuh"
 
 #define PROBE_MAX_NOUT 32
-#define PROBE_UNROLL 16   // even: the pair kernel consumes two at a time
 
 extern "C" {
 
@@ -127,24 +130,13 @@ __global__ void copy_probe_kernel(const CopyProbeArgs a)
     }
 }
 
-// pair_probe_kernel's five stores of one step
-__device__ __forceinline__ void probe_store(const ProbeArgs &a, int64_t o,
-                                            float v, float env, float filt,
-                                            float mdev, float avg)
-{
-    a.env[o] = env;
-    a.filt[o] = filt;
-    a.mdev[o] = mdev;
-    a.avg[o] = avg;
-    a.mod_depth[o] = cond_mod_depth(v, env);
-}
-
 // ---------------------------------------------------------------------------
-// serial_probe_kernel: the conditioning scan's design with the probe's
+// The conditioning probes: the conditioning scan's design with the probe's
 // float counter and call-local clock.  A block serves 32 lanes, one per
 // thread, with PROBE_WARPS warps, one per chain, mod_depth on two:
-//   warp 0     envelope + float silence counter (CondEnvChain with
-//              CondFloatCounter): env, and env into the shared stage ring
+//   warp 0     envelope + float silence counter (CondEnvChain, or
+//              CondPairChain in the pair probe, with CondFloatCounter):
+//              env, and env into the shared stage ring
 //   warp 1     w1 -> filt -> mdev: filt, mdev
 //   warp 2     avg
 //   warps 3-4  mod_depth, from their own samples and env taken from the
@@ -249,11 +241,10 @@ struct ProbeDepthChain {
     __device__ __forceinline__ void done(int) {}
 };
 
-__global__ void __launch_bounds__(PROBE_WARPS * 32)
-serial_probe_kernel(const ProbeArgs a)
+template <bool Pair>
+__device__ __forceinline__ void probe_body(const ProbeArgs &a, float *ring,
+                                           uint64_t *bars)
 {
-    __shared__ __align__(16) float ring[PROBE_ENV_STAGES * COND_UNROLL * 32];
-    __shared__ __align__(8) uint64_t bars[2 * PROBE_ENV_STAGES];
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int64_t n = a.G * a.L;
@@ -274,7 +265,9 @@ serial_probe_kernel(const ProbeArgs a)
     const ProbeStages st = {ring + lane, bars, bars + PROBE_ENV_STAGES};
 
     if (warp == 0) {
-        CondEnvChain<CondFloatCounter, ProbeEnvSink> c;
+        using Env = CondEnvChain<CondFloatCounter, ProbeEnvSink>;
+        using PairEnv = CondPairChain<CondFloatCounter, ProbeEnvSink>;
+        typename std::conditional<Pair, PairEnv, Env>::type c;
         c.env = 0.0f;
         c.cnt.pcount = 0.0f;
         c.cnt.silence = a.silence;
@@ -316,71 +309,21 @@ serial_probe_kernel(const ProbeArgs a)
     }
 }
 
-// T is even (checked by the wrapper)
-__global__ void pair_probe_kernel(const ProbeArgs a)
+__global__ void __launch_bounds__(PROBE_WARPS * 32)
+serial_probe_kernel(const ProbeArgs a)
 {
-    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= a.G * a.L) return;
-    const int64_t g = idx / a.L;
-    const int64_t L = a.L, T = a.T;
-    const int64_t o0 = g * T * L + (idx - g * L);
-    const float *__restrict__ value = a.value;
+    __shared__ __align__(16) float ring[PROBE_ENV_STAGES * COND_UNROLL * 32];
+    __shared__ __align__(8) uint64_t bars[2 * PROBE_ENV_STAGES];
+    probe_body<false>(a, ring, bars);
+}
 
-    float env = 0.0f, w1 = 0.0f, mdev = 0.0f, avg = 0.0f, pcount = 0.0f;
-    float cur[PROBE_UNROLL], nxt[PROBE_UNROLL];
-#pragma unroll
-    for (int k = 0; k < PROBE_UNROLL; ++k)
-        cur[k] = k < T ? value[o0 + k * L] : 0.0f;
-
-    for (int64_t j0 = 0; j0 < T; j0 += PROBE_UNROLL) {
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; ++k) {
-            const int64_t j = j0 + PROBE_UNROLL + k;
-            nxt[k] = j < T ? value[o0 + j * L] : 0.0f;
-        }
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; k += 2) {
-            const int64_t t = j0 + k;
-            if (t < T) {
-                const float v1 = cur[k], v2 = cur[k + 1];
-                // envelope chain: sample 2's quotient for each outcome of
-                // sample 1, before sample 1 is resolved
-                const float c_u = cond_ema(env, a.enve_w0, v1, a.enve_w1);
-                const float d1 = cond_env_diff(v1, env);
-                const float e_u = cond_env_diff(v2, c_u);
-                const float e_s = cond_env_diff(v2, v1);
-                const float e_h = cond_env_diff(v2, env);
-                const float p1 = __fadd_rn(pcount, 1.0f);
-                const bool u1 = (d1 < 0.05f) || (p1 > a.silence);
-                const bool s1 = !u1 && (t < a.etu);
-                const float env1 = u1 ? c_u : (s1 ? v1 : env);
-                const float pc1 = u1 ? 0.0f : p1;
-                const float d2 = u1 ? e_u : (s1 ? e_s : e_h);
-                const float p2 = __fadd_rn(pc1, 1.0f);
-                const bool u2 = (d2 < 0.05f) || (p2 > a.silence);
-                const bool s2 = !u2 && (t + 1 < a.etu);
-                const float c2u = cond_ema(env1, a.enve_w0, v2, a.enve_w1);
-                const float env2 = u2 ? c2u : (s2 ? v2 : env1);
-                pcount = u2 ? 0.0f : p2;
-                env = env2;
-
-                // the linear chains, unrolled twice
-                float filt1, filt2;
-                const float w0a = cond_iir(v1, w1, a.iir_a, &filt1);
-                w1 = cond_iir(v2, w0a, a.iir_a, &filt2);
-                const float mdev1 = cond_ema(mdev, a.mdev_w0, fabsf(filt1),
-                                             a.mdev_w1);
-                mdev = cond_ema(mdev1, a.mdev_w0, fabsf(filt2), a.mdev_w1);
-                const float avg1 = cond_ema(avg, a.mean_w0, v1, a.mean_w1);
-                avg = cond_ema(avg1, a.mean_w0, v2, a.mean_w1);
-
-                probe_store(a, o0 + t * L, v1, env1, filt1, mdev1, avg1);
-                probe_store(a, o0 + (t + 1) * L, v2, env2, filt2, mdev, avg);
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < PROBE_UNROLL; ++k) cur[k] = nxt[k];
-    }
+// T is even (checked by the wrapper)
+__global__ void __launch_bounds__(PROBE_WARPS * 32)
+pair_probe_kernel(const ProbeArgs a)
+{
+    __shared__ __align__(16) float ring[PROBE_ENV_STAGES * COND_UNROLL * 32];
+    __shared__ __align__(8) uint64_t bars[2 * PROBE_ENV_STAGES];
+    probe_body<true>(a, ring, bars);
 }
 
 extern "C" {
@@ -403,20 +346,17 @@ int nfclab_cond_probe(const ProbeArgs *a, int pair, int device, int threads,
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
     const int64_t lanes = a->G * a->L;
-    if (pair) {
-        const int64_t blocks = (lanes + threads - 1) / threads;
-        pair_probe_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(*a);
-        return (int)cudaGetLastError();
-    }
-    // serial: a block of PROBE_WARPS warps for 32 lanes; 32-bit offsets
-    // reach COND_UNROLL rows of L lanes, and the int32 clock the last
-    // group
+    // a block of PROBE_WARPS warps for 32 lanes; 32-bit offsets reach
+    // COND_UNROLL rows of L lanes, and the int32 clock the last group;
+    // the pair probe steps whole pairs
     if (threads != PROBE_WARPS * 32 || a->L < 1 || a->L > (1LL << 27)
-        || a->T > (int64_t)INT32_MAX - COND_UNROLL)
+        || a->T > (int64_t)INT32_MAX - COND_UNROLL || (pair && a->T % 2))
         return (int)cudaErrorInvalidValue;
-    serial_probe_kernel<<<(unsigned)((lanes + 31) / 32), threads, 0,
-                          (cudaStream_t)stream>>>(*a);
+    const unsigned blocks = (unsigned)((lanes + 31) / 32);
+    if (pair)
+        pair_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*a);
+    else
+        serial_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // Staging samples into shared memory on Hopper (sm_90): mbarriers in
-// shared memory and cp.async copies that arrive on them.  Shared by the
-// scans that stage their input (ff_scan_kernel, v2_scan_kernel) and the
-// probe that hands its envelope from one warp to another
-// (serial_probe_kernel).
+// shared memory and cp.async copies that arrive on them.
+// Shared by the scans that stage their input (ff_scan_kernel,
+// v2_scan_kernel), the probes that hand their envelope from one warp to
+// another (serial_probe_kernel, pair_probe_kernel) and the v2 mask, which
+// stages its lookback rows (v2_mask_kernel).
 
 #pragma once
 
@@ -57,3 +58,4 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t *bar)
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
                  :: "r"(smem_addr(bar)) : "memory");
 }
+

@@ -24,8 +24,10 @@ Two hand-written CUDA kernels compute it (``nfclab_torch/csrc/
 fused_v2.cu``): ``fused_v2_scan``, serial over the chunk with 32 streams a
 block and the chains split over warps (conditioning, mod_depth, the nine
 box sums; samples staged and rings kept in shared memory), and
-``fused_v2_mask``, one thread per (sample, stream) for detect_mask and the
-state rows the mask owns.  Each wrapper runs its plain
+``fused_v2_mask``, parallel in time with 32 streams and a span of rows a
+block, each lookback channel staged into a shared ring, for detect_mask
+and the state rows the mask owns; its threshold tests take no divide
+(``sd_above`` mirrors them here).  Each wrapper runs its plain
 PyTorch version (``_scan_plain``, ``_mask_plain``, the kernels' float32
 operation order) when its input lies on the CPU.  Inside, samples and
 outputs are time-major ``[T, B]`` and the state section-major
@@ -34,6 +36,7 @@ outputs are time-major ``[T, B]`` and the state section-major
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..dsp.cuda_channels import resolve_device
@@ -140,6 +143,31 @@ def mask_state_rows() -> torch.Tensor:
     rows[5:10] = True
     rows[S_RB:S_SUMS] = True
     return rows
+
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def sd_above(n, y, p2) -> np.ndarray:
+    """Mirror of the mask kernels' divide-free threshold test
+    (``csrc/condition_step.cuh::sd_above``) on float32 arrays: for
+    0 < y < FLT_MAX, n > p2 * m or (n = p2 * m and y's last bit 1) in
+    float64, m the midpoint of y and its float32 successor, which is exact;
+    elsewhere the float32 quotient's own test.  Equal to
+    ``n / float32(p2) > y`` everywhere."""
+    n = np.asarray(n, np.float32)
+    y = np.asarray(y, np.float32)
+    n, y = np.broadcast_arrays(n, y)
+    bits = y.view(np.uint32)
+    up = (bits + np.uint32(1)).view(np.float32)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        mid = (y.astype(np.float64) + up.astype(np.float64)) * 0.5
+        lim = float(p2) * mid
+        x = n.astype(np.float64)
+        above = (x > lim) | ((x == lim) & ((bits & 1) == 1))
+        special = ~((y > 0) & (y < np.float32(FLT_MAX)))
+        above[special] = n[special] / np.float32(p2) > y[special]
+    return above
 
 
 def unpack_detect_mask(mask):

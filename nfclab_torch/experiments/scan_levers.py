@@ -1,16 +1,18 @@
-"""What each lever of the serial scans' design buys on the card.
+"""What each lever of the redesigned kernels' design buys on the card.
 
 The four serial scans -- ``cond_scan_kernel``, ``ff_scan_kernel``,
-``v2_scan_kernel`` and ``serial_probe_kernel`` -- take their envelope
-decision without a divide (where a group of steps keeps its envelope
-positive, without a branch either), split their chains over warps, and
-(the fused scans) stage their samples in shared memory and issue a group's
-ring reads before its ring writes; ``v2_scan_kernel`` keeps its rings
-rotated to the chunk in power-of-two sizes, so a step takes a mask and no
-modulo, and v2 and the probe run mod_depth's divide on a warp of its own.
-This script times them against variant libraries that each undo one
-lever, built from patched copies of ``csrc/`` (the program itself has no
-switch for any of them):
+``v2_scan_kernel`` and ``serial_probe_kernel`` -- and the pair probe take
+their envelope decision without a divide (where a group of steps keeps its
+envelope positive, without a branch either), split their chains over
+warps, and (the fused scans) stage their samples in shared memory and
+issue a group's ring reads before its ring writes; ``v2_scan_kernel``
+keeps its rings rotated to the chunk in power-of-two sizes, so a step
+takes a mask and no modulo, and v2 and the probes run mod_depth's divide
+on a warp of its own.  ``v2_mask_kernel`` stages each lookback channel in
+a shared ring and decides its thresholds without a divide.  This script
+times them against variant libraries that each undo one lever, built from
+patched copies of ``csrc/`` (the program itself has no switch for any of
+them):
 
 - ``current``: ``csrc/`` as it is;
 - ``quotient``: the envelope test written as the correctly rounded
@@ -22,13 +24,25 @@ switch for any of them):
 - ``modulo``: ``v2_scan_kernel``'s rings in their state sizes (96, 96,
   192, ...), each slot taken with a modulo;
 - ``md_inline``: mod_depth computed by the envelope warp, in v2 and the
-  probe, and their mod_depth warps idle;
+  probes, and their mod_depth warps idle;
 - ``md_divide``: the mod_depth warps divide at every step
   (``cond_mod_depth``), where the numerator is zero too;
+- ``pair_quotient``: the pair probe's four envelope tests as the
+  quotients the TPU original wrote (``d1``, ``e_u``, ``e_s``, ``e_h``);
+- ``mask_divide``: the v2 mask's seven threshold tests as the correctly
+  rounded divide, staged as now;
+- ``mask_zero_split``: the divide, with only its zero numerator taken
+  apart (``+-0 / p2 > y`` is ``0 > y``);
+- ``mask_unstaged``: the divide-free tests, every lookback read from
+  memory where it lies, nothing staged;
+- ``mask_unstaged_divide``: neither;
+- ``mask_warps8``: the v2 mask with 8 consumer warps instead of 16;
+- ``mask_producers1``: the v2 mask with one producer warp instead of 4;
+- ``mask_tile32`` / ``mask_stages4`` / ``mask_tile16``: the v2 mask's
+  pipeline as 3 stages of 32 rows, 4 of 32 or 6 of 16 (2 of 64 as built);
 - ``base`` (with ``--base DIR``, the ``csrc/`` of an earlier checkout
-  whose v2 scan and serial probe run one thread per stream in one warp a
-  block): that design as it is, its v2 launcher given this one's
-  arguments.
+  whose pair probe runs one thread per lane in one warp a block and whose
+  v2 mask runs one thread per (row, stream)): that design as it is.
 
 Probes of what bounds a step change what the kernels compute, so their
 outputs are not compared (``PROBES``):
@@ -36,11 +50,14 @@ outputs are not compared (``PROBES``):
 - ``no_stores``: every per-step store of the scans skipped but the
   mod_depth warps' (the chains still run; the state rows are still
   written);
-- ``md_nodiv`` / ``md_off``: the mod_depth warps of v2 and the probe
+- ``md_nodiv`` / ``md_off``: the mod_depth warps of v2 and the probes
   without the divide, or without any work but their waits;
 - ``no_handoff``: those warps read the env stages without waiting for
-  them (nor the probe's envelope warp for their release);
-- ``probe_env_only``: ``serial_probe_kernel``'s envelope warp alone;
+  them (nor the probes' envelope warp for their release);
+- ``probe_env_only``: the probes' envelope warp alone (serial and pair);
+- ``mask_idle`` / ``mask_no_copy``: the v2 mask's consumers only waiting
+  for the producer's copies, or computing on zeroed rings with nothing
+  copied;
 - ``env_only``: ``cond_scan_kernel`` with its envelope warp alone;
 - ``unroll8`` / ``unroll32``: groups of 8 or 32 steps instead of 16;
 - ``no_branch``: ``cond_env_near`` without its special-value branch;
@@ -50,13 +67,16 @@ outputs are not compared (``PROBES``):
 Each variant runs the conditioning and fused scans on the same seeded
 carrier lanes (1024 x 65536 samples, ASK dips, field-off gaps, noise), the
 conditioning scan also at 1 x 65536; ``v2_scan_kernel`` on ``bench_v2``'s
-first configuration (4096 x 16384 of its noise, carried state) and
-``serial_probe_kernel`` on the probe's own input (1 x 65536 x 2048).  A
-lever's outputs must equal the current kernels' bit for bit.  Times are
-CUDA events over 5 launches after a warm-up, each variant timed in a
-forward and a backward pass over the list.  One JSON line per variant, one
-with the SM clock and power draw that nvidia-smi reads while the current
-v2 scan runs, then the card.
+first configuration (4096 x 16384 of its noise, carried state); both
+probes on the probe's own input at one group (1 x 65536 x 2048, where the
+chain's latency bounds them) and at eight (the pair probe's measurement);
+``v2_mask_kernel`` on the v2 scan's outputs of that bench_v2 chunk and of
+the carrier lanes (1024 x 65536 from a fresh state).  A lever's outputs
+must equal the current kernels' bit for bit, and the pair probe's the
+serial probe's.  Times are CUDA events over 5 launches after a warm-up,
+each variant timed in a forward and a backward pass over the list.  One
+JSON line per variant, one with the SM clock and power draw that
+nvidia-smi reads while the current v2 scan runs, then the card.
 
     python -m nfclab_torch.experiments.scan_levers [--base DIR]
 """
@@ -82,6 +102,7 @@ from ..kernels import fused as kf
 from ..kernels import fused_v2 as kv
 from ..kernels import probes as kp
 from . import fused_v2 as v2
+from . import probe_pair_spec as pps
 from . import probe_serial_floor as psf
 
 RATE = 10_000_000
@@ -94,8 +115,8 @@ _TEST = "    return (double)ad <= __dmul_rn(m, (double)env);"
 QUOTIENT = {HEADER: [
     (_TEST, "    return __fdiv_rn(ad, env) < 0.05f;")]}
 ONE_PATH = {HEADER: [
-    ("        if (__all_sync(__activemask(), a | b | pass)) {",
-     "        if (false) {")]}
+    ("        return __all_sync(__activemask(), a | b | pass);",
+     "        return false;")]}
 GROUP1 = {"fused_v2.cu": [("v2_consume<V2_GROUP>", "v2_consume<1>")]}
 MODULO = {"fused_v2.cu": [
     ("constexpr int PV_RING = 128, PF_RING = 128, PQ_RING = 256;",
@@ -106,7 +127,11 @@ MODULO = {"fused_v2.cu": [
 # and the mod_depth warps store nothing
 _MD_NEVER = "if (B == 0u) "
 MD_INLINE = {
-    HEADER: [("        sink.put(k, env, cnt);", "        sink.put(k, env, cnt, v);")],
+    HEADER: [("        sink.put(k, env, cnt);", "        sink.put(k, env, cnt, v);"),
+             ("        this->sink.put(k, env1, cnt);",
+              "        this->sink.put(k, env1, cnt, v1);"),
+             ("        this->sink.put(k + 1, env, cnt);",
+              "        this->sink.put(k + 1, env, cnt, v2);")],
     "conditioner.cu": [("const CondPulseCounter &c)", "const CondPulseCounter &c, float)")],
     "fused_v2.cu": [
         ("""                                        const CondFloatCounter &)
@@ -154,14 +179,45 @@ MD_INLINE = {
 # mod_depth's warps dividing on every step, the zero numerator included
 MD_DIVIDE = {f: [("cond_mod_depth_split(", "cond_mod_depth(")]
              for f in ("fused_v2.cu", "probes.cu")}
-# an earlier v2 launcher, given this one's arguments (it sizes its own
-# shared memory)
-BASE_ABI = {"fused_v2.cu": [
-    ("int nfclab_v2_scan(const V2Args *a, int device, int threads, void *stream)\n{",
-     "int64_t nfclab_v2_scan_smem(void) { return 0; }\n\n"
-     "int nfclab_v2_scan(const V2Args *a, int device, int threads,\n"
-     "                   int64_t smem_unused, void *stream)\n{"),
+# the pair probe's four envelope tests as the quotients the TPU original
+# wrote, with no vote taking effect
+PAIR_QUOTIENT = {HEADER: [
+    ("        return Pos ? cond_env_near_pos(v, env) : cond_env_near(v, env);",
+     "        return cond_env_diff(v, env) < 0.05f;")]}
+# the mask's threshold tests as the correctly rounded divide; or the divide
+# with only its zero numerator taken apart (+-0 / p2 > y is 0 > y)
+_SD = ("    bool above = sd_above_pos(n, y, mid, p2);\n"
+       "    if (__builtin_expect(divide, 0)) above = __fdiv_rn(n, (float)p2) > y;\n"
+       "    return above;")
+MASK_DIVIDE = {HEADER: [(_SD, "    return __fdiv_rn(n, (float)p2) > y;")]}
+MASK_ZERO_SPLIT = {HEADER: [
+    (_SD, "    return n == 0.0f ? 0.0f > y : __fdiv_rn(n, (float)p2) > y;")]}
+# the mask's lookbacks read from memory (L2) where they lie, nothing staged
+MASK_UNSTAGED = {"fused_v2.cu": [
+    ("    return rings[(v2_mask_ring_base(C) + ((j - l) & (g.ring - 1))) * 32];",
+     "    return b < a.B ? v2_mask_src<C>(a, j - l, b)[0] : 0.0f;"),
+    ("    const bool lane_ok = b0 + lane < a.B;\n",
+     "    const bool lane_ok = b0 + lane < a.B;\n    if (lo < hi) return;\n"),
 ]}
+# the mask with half its consumer warps, or one producer warp (each
+# launched with its warp count)
+MASK_WARPS8 = {"fused_v2.cu": [("#define V2_MASK_WARPS 16", "#define V2_MASK_WARPS 8")]}
+MASK_PRODUCERS1 = {"fused_v2.cu": [("#define V2_MASK_PRODUCERS 4",
+                                    "#define V2_MASK_PRODUCERS 1")]}
+MASK_THREADS = {"mask_warps8": (8 + 4) * 32, "mask_producers1": (16 + 1) * 32}
+# the mask's pipeline: sub-tile rows and stages in flight (bv12's ring
+# shrunk where its spread and the stages fit 256 rows)
+_RINGS_OK = ('static_assert(V2_MASK_RING_ROWS == 128 + 4 * 256 + 512, "the rings\' rows");',
+             "")
+_BV12_256 = ("        : c == MC_BV12 ? V2Lags{O_BV12, 0, 153, 512,",
+             "        : c == MC_BV12 ? V2Lags{O_BV12, 0, 153, 256,")
+
+
+def _mask_pipeline(tile, stages, bv12_256):
+    return {"fused_v2.cu": [
+        ("#define V2_MASK_TILE 64", f"#define V2_MASK_TILE {tile}"),
+        ("#define V2_MASK_STAGES 2", f"#define V2_MASK_STAGES {stages}"),
+        _RINGS_OK, *([_BV12_256] if bv12_256 else [])]}
 
 _NEVER = "if (B == 0u) "  # a store no step makes
 _SPECIAL = ("    if (__builtin_expect(!(env > 0.0f && env < INFINITY), 0))\n"
@@ -232,6 +288,16 @@ PROBES = {
         ("    } else {\n        CondAvgChain c;",
          "    } else if (a.T < 0) {\n        CondAvgChain c;"),
     ]},
+    "mask_idle": {"fused_v2.cu": [
+        ("            const float m = v2_mask_row(a, col, b, J + k, carry);\n"
+         "            if (valid) __stcg(mask + (int64_t)(J + k) * a.B, m);",
+         "            if (a.B == 0) __stcg(mask, col[0]);")]},
+    "mask_no_copy": {"fused_v2.cu": [
+        *MASK_UNSTAGED["fused_v2.cu"][1:],
+        ("    __syncthreads();\n\n    if (warp >= V2_MASK_WARPS) {",
+         "    for (int i = threadIdx.x; i < V2_MASK_RING_ROWS * 32; i += blockDim.x)\n"
+         "        rings[i] = 0.0f;\n"
+         "    __syncthreads();\n\n    if (warp >= V2_MASK_WARPS) {")]},
     "unroll8": {HEADER: [("#define COND_UNROLL 16", "#define COND_UNROLL 8")]},
     "unroll32": {HEADER: [("#define COND_UNROLL 16", "#define COND_UNROLL 32")]},
     "no_branch": {HEADER: [(_SPECIAL, "")]},
@@ -242,7 +308,15 @@ PROBES = {
 }
 # every patch of the current sources, for the test that they apply
 VARIANTS = {"quotient": QUOTIENT, "one_path": ONE_PATH, "group1": GROUP1,
-            "modulo": MODULO, "md_inline": MD_INLINE, "md_divide": MD_DIVIDE}
+            "modulo": MODULO, "md_inline": MD_INLINE, "md_divide": MD_DIVIDE,
+            "pair_quotient": PAIR_QUOTIENT, "mask_divide": MASK_DIVIDE,
+            "mask_zero_split": MASK_ZERO_SPLIT,
+            "mask_unstaged": MASK_UNSTAGED,
+            "mask_unstaged_divide": {**MASK_UNSTAGED, **MASK_DIVIDE},
+            "mask_warps8": MASK_WARPS8, "mask_producers1": MASK_PRODUCERS1,
+            "mask_tile32": _mask_pipeline(32, 3, True),
+            "mask_stages4": _mask_pipeline(32, 4, False),
+            "mask_tile16": _mask_pipeline(16, 6, True)}
 
 
 def carrier_lanes(streams: int, steps: int, seed: int = 0) -> np.ndarray:
@@ -297,32 +371,37 @@ def build_variant(name: str, src: Path, patches: dict):
 
 class Variant:
     """A library and its launch geometry: the earlier design (``base``)
-    runs its v2 scan and serial probe one warp a block."""
+    runs its pair probe one warp a block and its v2 mask one thread per
+    (row, stream) in blocks of 256."""
 
-    def __init__(self, name, path, base=False, group=None, probe=False):
+    def __init__(self, name, path, base=False, group=None, probe=False,
+                 mask_threads=None):
         self.name, self.path = name, path
         self.base, self.group, self.probe = base, group, probe
+        self.mask_threads = mask_threads
         self.lib = None
 
     def __enter__(self):
         if self.lib is None:
             self.lib = kf.bind(self.path)
         self.saved = (kf.library, kc.library, kv.library, kp.library,
-                      kf.scan_group, kv.SCAN_THREADS, kv.scan_smem,
-                      kp.SERIAL_THREADS)
+                      kf.scan_group, kv.MASK_THREADS, kv.scan_smem,
+                      kp.PAIR_THREADS)
         kf.library = kc.library = kv.library = kp.library = lambda: self.lib
         # the library sizes the v2 scan's shared memory (a variant's rings
-        # differ; the earlier design's launcher sizes its own)
+        # differ)
         kv.scan_smem = lambda stages=None: self.lib.nfclab_v2_scan_smem()
         if self.base:
-            kv.SCAN_THREADS, kp.SERIAL_THREADS = 32, 32
+            kv.MASK_THREADS, kp.PAIR_THREADS = 256, 32
+        if self.mask_threads is not None:
+            kv.MASK_THREADS = self.mask_threads
         if self.group is not None:
             kf.scan_group = lambda plan: self.group
         return self
 
     def __exit__(self, *exc):
         (kf.library, kc.library, kv.library, kp.library, kf.scan_group,
-         kv.SCAN_THREADS, kv.scan_smem, kp.SERIAL_THREADS) = self.saved
+         kv.MASK_THREADS, kv.scan_smem, kp.PAIR_THREADS) = self.saved
 
 
 def _event_ms(fn, reps=5) -> float:
@@ -338,7 +417,9 @@ def _event_ms(fn, reps=5) -> float:
     return a.elapsed_time(b) / reps
 
 
-KEYS = ("cond", "cond_repair", "ff_scan", "v2_scan", "serial_probe")
+KEYS = ("cond", "cond_repair", "ff_scan", "v2_scan", "serial_probe",
+        "pair_probe", "serial_probe8", "pair_probe8", "v2_mask",
+        "v2_mask_carrier")
 
 
 def run(base: Path = None, device="cuda") -> list:
@@ -359,19 +440,37 @@ def run(base: Path = None, device="cuda") -> list:
                           ).to(dev)
     xv1 = xv[V2_STEPS:].contiguous()
     xp = psf.probe_input(1, psf.T_PROBE, psf.SUB, dev)
+    xp8 = psf.probe_input(8, psf.T_PROBE, psf.SUB, dev)
 
     current = kbuild.build()
     variants = [Variant("current", current)]
     for name, patches in VARIANTS.items():
-        variants.append(Variant(name, build_variant(name, kbuild.SRC_DIR,
-                                                    patches),
-                                group=1 if name == "group1" else None))
+        variants.append(Variant(
+            name, build_variant(name, kbuild.SRC_DIR, patches),
+            group=1 if name == "group1" else None,
+            mask_threads=MASK_THREADS.get(name)))
     if base is not None:
-        variants.append(Variant("base", build_variant("base", base, BASE_ABI),
+        variants.append(Variant("base", build_variant("base", base, {}),
                                 base=True))
     for name, patches in PROBES.items():
         variants.append(Variant(name, build_variant(name, kbuild.SRC_DIR,
                                                     patches), probe=True))
+
+    with variants[0]:
+        stv = v2.v2_scan(xv[:V2_STEPS].contiguous(),
+                         torch.zeros(v2.NSTATE, V2_STREAMS, device=dev), 0,
+                         pt)[1]
+        # the mask's inputs: the scan's outputs on bench_v2's chunk and on
+        # the carrier lanes (chunk 0, zero state)
+        outv, sov = v2.v2_scan(xv1, stv, V2_STEPS, pt)
+        stc = torch.zeros(v2.NSTATE, STREAMS, device=dev)
+        outc, soc = v2.v2_scan(x, stc, 0, pt)
+    del xv
+    mp = (0.01, 0.75, 0.10, 0.50, 0.50)
+
+    def mask(out, st_in, st_out, base_clock):
+        v2.v2_mask(out, st_in, st_out, base_clock, mp)
+        return out[-1], st_out
 
     calls = {
         "cond": lambda: ck.condition_scan_tm(x, *init, pt),
@@ -379,12 +478,12 @@ def run(base: Path = None, device="cuda") -> list:
         "ff_scan": lambda: ff.fused_scan(x, st, 0, pt, plan),
         "v2_scan": lambda: v2.v2_scan(xv1, stv, V2_STEPS, pt),
         "serial_probe": lambda: psf.serial_probe(xp),
+        "pair_probe": lambda: pps.pair_probe(xp),
+        "serial_probe8": lambda: psf.serial_probe(xp8),
+        "pair_probe8": lambda: pps.pair_probe(xp8),
+        "v2_mask": lambda: mask(outv, stv, sov, V2_STEPS),
+        "v2_mask_carrier": lambda: mask(outc, stc, soc, 0),
     }
-    with variants[0]:
-        stv = v2.v2_scan(xv[:V2_STEPS].contiguous(),
-                         torch.zeros(v2.NSTATE, V2_STREAMS, device=dev), 0,
-                         pt)[1]
-    del xv
     # the v2 scan owns every state row but the mask's
     scan_rows = ~v2.mask_state_rows().to(dev)
     want = None
@@ -392,10 +491,22 @@ def run(base: Path = None, device="cuda") -> list:
         if v.probe:
             continue
         with v:
-            got = {k: calls[k]() for k in KEYS}
+            # eight groups: the pair probe equals the serial one (20 GB of
+            # outputs each, not kept)
+            for a, b in zip(calls["pair_probe8"](), calls["serial_probe8"]()):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"variant {v.name}: pair != serial")
+            got = {k: calls[k]() for k in KEYS if not k.endswith("8")}
+        for a, b in zip(got["pair_probe"], got["serial_probe"]):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"variant {v.name}: pair != serial")
         flat = [*got["cond"], *got["cond_repair"], got["ff_scan"][0],
                 got["ff_scan"][2], got["v2_scan"][0][:-1],
-                got["v2_scan"][1][scan_rows], *got["serial_probe"]]
+                got["v2_scan"][1][scan_rows]]
+        for k in ("serial_probe", "pair_probe"):
+            flat += [t.clone() for t in got[k]]
+        for k in ("v2_mask", "v2_mask_carrier"):
+            flat += [got[k][0].clone(), got[k][1][~scan_rows]]
         if want is None:
             want = flat
         elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -411,7 +522,10 @@ def run(base: Path = None, device="cuda") -> list:
     with variants[0]:
         load = clocks_under_load(calls["v2_scan"], 500)
     steps = {"cond": STEPS, "cond_repair": STEPS, "ff_scan": STEPS,
-             "v2_scan": V2_STEPS, "serial_probe": psf.T_PROBE}
+             "v2_scan": V2_STEPS, "serial_probe": psf.T_PROBE,
+             "pair_probe": psf.T_PROBE, "serial_probe8": psf.T_PROBE,
+             "pair_probe8": psf.T_PROBE, "v2_mask": V2_STEPS,
+             "v2_mask_carrier": STEPS}
     for v in variants:
         t = np.array(times[v.name])
         row = {"variant": v.name, "probe": v.probe}
@@ -428,8 +542,8 @@ def run(base: Path = None, device="cuda") -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", type=Path, default=None,
-                    help="csrc/ of an earlier checkout (one-warp v2 scan "
-                         "and serial probe)")
+                    help="csrc/ of an earlier checkout (one-warp pair "
+                         "probe, one thread per (row, stream) v2 mask)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_levers: needs a CUDA device")

@@ -132,6 +132,14 @@ def bind(path) -> ctypes.CDLL:
     lib.nfclab_v2_scan_smem.restype = ctypes.c_int64
     lib.nfclab_v2_nstate.argtypes = []
     lib.nfclab_v2_nstate.restype = ctypes.c_int
+    # the mask kernel's geometry (absent from libraries built before it
+    # staged its channels)
+    if hasattr(lib, "nfclab_v2_mask_geometry"):
+        lib.nfclab_v2_mask_geometry.argtypes = [
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+        lib.nfclab_v2_mask_geometry.restype = ctypes.c_int
+        lib.nfclab_v2_mask_smem.argtypes = []
+        lib.nfclab_v2_mask_smem.restype = ctypes.c_int64
     lib.nfclab_copy_probe.argtypes = [
         ctypes.POINTER(CopyProbeArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,

@@ -27,7 +27,25 @@ SCAN_TILE_ROWS = 96    # samples per tile: whole ring groups (6) and
 # 192, products 8/16/32) each in the power of two at least its size
 SCAN_RING_ROWS = 128 + 128 + 256 + 8 + 16 + 32
 SCAN_MAX_STREAMS = 1 << 25   # 32-bit offsets within a tile
-MASK_THREADS = 256
+# v2_mask_kernel: 32 streams and a span of rows per block, sixteen
+# consumer warps and four producer warps that stage each channel into a
+# shared ring
+MASK_WARPS = 16
+MASK_PRODUCERS = 4
+MASK_THREADS = (MASK_WARPS + MASK_PRODUCERS) * 32
+MASK_TILE_ROWS = 64      # rows of a sub-tile
+MASK_STAGES = 2          # sub-tiles in flight
+MASK_SPAN_ROWS = 2048    # rows of a block's span
+# the staged channels: (name, least lag, largest lag, shared ring, state
+# ring), the state ring 0 where the channel is never read before the chunk
+MASK_CHANNELS = (
+    ("envelope", 0, 0, 128, 0),
+    ("bv47", 0, 47, 256, 64),
+    ("bv24", 0, 117, 256, 128),
+    ("bv12", 0, 153, 512, 160),
+    ("filtered", 0, 94, 256, 96),
+    ("bv94", 378, 473, 256, 474),
+)
 
 _p = ctypes.c_void_p
 _f = ctypes.c_float
@@ -97,6 +115,30 @@ def launch_scan(value_tm, state_in, state_out, out, base, pt, nstate):
     check(lib, lib.nfclab_v2_scan(ctypes.byref(a), out.device.index,
                                   SCAN_THREADS, smem, stream),
           "fused_v2_scan")
+
+
+def mask_geometry() -> list:
+    """v2_mask_kernel's geometry as the library reports it
+    (nfclab_v2_mask_geometry): consumer and producer warps, sub-tile rows,
+    stages, span rows, then per staged channel its least and largest lag,
+    shared ring and state ring."""
+    return [MASK_WARPS, MASK_PRODUCERS, MASK_TILE_ROWS, MASK_STAGES,
+            MASK_SPAN_ROWS,
+            *(x for ch in MASK_CHANNELS for x in ch[1:])]
+
+
+def mask_smem() -> int:
+    """Shared memory of one v2_mask_kernel block: two mbarriers per stage
+    padded to 16 B, then the rings, 32 columns each."""
+    bars = (2 * MASK_STAGES * 8 + 15) // 16 * 16
+    return bars + 128 * sum(ch[3] for ch in MASK_CHANNELS)
+
+
+def library_mask_geometry(lib) -> tuple:
+    """(geometry, shared memory) of the library's v2_mask_kernel."""
+    g = (ctypes.c_int32 * 64)()
+    n = lib.nfclab_v2_mask_geometry(g, 64)
+    return list(g[:n]), lib.nfclab_v2_mask_smem()
 
 
 def launch_mask(out, state_in, state_out, base, mp, nstate):

@@ -21,7 +21,8 @@ COPY_THREADS = 256
 COPY_BLOCKS_PER_SM = 8   # 2048 threads on every SM, each with a load in flight
 SERIAL_THREADS = 160     # five warps (envelope, filter, average, two
                          # for mod_depth) for 32 lanes
-PAIR_THREADS = 32        # one warp per block: the lanes spread over the SMs
+PAIR_THREADS = 160       # the same warps, the envelope warp two samples a
+                         # step
 SERIAL_MAX_LANES = 1 << 27    # 32-bit offsets reach 16 rows of lanes
 SERIAL_MAX_STEPS = 2**31 - 1 - 16  # the int32 clock's last group
 
@@ -72,10 +73,11 @@ def launch_probe(value, outs, pt, pair: bool):
     value: [G, T, L] f32; outs: (env, filt, mdev, avg, mod_depth), each
     [G, T, L]; pt: the 8-tuple of dsp.frontend._params_tuple."""
     G, T, L = value.shape
-    if not pair and (L > SERIAL_MAX_LANES or T > SERIAL_MAX_STEPS):
+    if L > SERIAL_MAX_LANES or T > SERIAL_MAX_STEPS:
+        name = "pair_probe_kernel" if pair else "serial_probe_kernel"
         raise ValueError(
-            f"serial_probe_kernel takes at most {SERIAL_MAX_LANES} lanes a "
-            f"group and {SERIAL_MAX_STEPS} steps, got {L} x {T}")
+            f"{name} takes at most {SERIAL_MAX_LANES} lanes a group and "
+            f"{SERIAL_MAX_STEPS} steps, got {L} x {T}")
     lib = library()
     a = ProbeArgs()
     a.value = value.data_ptr()

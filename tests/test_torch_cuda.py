@@ -302,3 +302,53 @@ def test_experiment_scans_on_boundary_lanes_on_card(cuda):
             x.reshape(t, g, lanes).transpose(1, 0, 2))).to(cuda)
         for a, w in zip(psf.serial_probe(v), psf.serial_probe_plain(v)):
             assert _same(a, w), (g, lanes, t)
+
+
+def test_pair_probe_on_boundary_lanes_on_card(cuda):
+    """pair_probe_kernel, redesigned on the serial probe's warps with a
+    pair-speculative envelope warp, on lanes whose envelope test sits on
+    its boundary: seeding windows on special, zero and negative samples,
+    field-off stretches past the silence timeout, groups of 999 lanes and
+    a ragged tail of pairs.  Equal to serial_probe_kernel and to its plain
+    version bit for bit."""
+    from nfclab_torch.experiments import probe_pair_spec as pps
+    from nfclab_torch.experiments import probe_serial_floor as psf
+    from torch_synth import probe_boundary_lanes
+
+    for i, (g, lanes, t, off) in enumerate((
+            (2, 999, 136, None), (1, 33, 6, None),
+            (1, 256, 1200, (150, 1150)))):
+        x = probe_boundary_lanes(g * lanes, t, seed=70 + i, off=off)
+        v = torch.from_numpy(np.ascontiguousarray(
+            x.reshape(t, g, lanes).transpose(1, 0, 2))).to(cuda)
+        before = pps.PAIR.launches
+        got = pps.pair_probe(v)
+        assert pps.PAIR.launches == before + 1
+        for a, s, p in zip(got, psf.serial_probe(v), pps.pair_probe_plain(v)):
+            assert _same(a, s), (g, lanes, t)
+            assert _same(a, p), (g, lanes, t)
+
+
+def test_v2_mask_on_boundary_outputs_on_card(cuda):
+    """v2_mask_kernel, staged and divide-free, on crafted scan outputs
+    whose SD numerators sit at -2..2 ulps of the test's boundary in every
+    binade of env (special envelopes included), with the power gate at -1,
+    0 and its default; a span boundary, B not a multiple of 4, T below the
+    largest lag.  Bit-exact against its plain version, state rows
+    included."""
+    from nfclab_torch.experiments import fused_v2 as v2
+    from torch_synth import mask_boundary_out
+
+    rows = v2.mask_state_rows().to(cuda)
+    for i, (case, mp, t, b, base) in enumerate((
+            ("a", (-1.0, 0.75, 0.10, 0.50, 0.50), 2100, 1029, 0),
+            ("f", (0.0, 0.75, 0.10, 0.50, 0.50), 300, 512, 95),
+            ("a", (0.01, 0.75, 0.10, 0.50, 0.50), 700, 64, 2**31 - 1648))):
+        out, st = (torch.from_numpy(a).to(cuda)
+                   for a in mask_boundary_out(t, b, 90 + i, case, mp))
+        out_k, so_k = out.clone(), torch.zeros_like(st)
+        v2.v2_mask(out_k, st, so_k, base, mp)
+        so_p = torch.zeros_like(st)
+        v2._mask_plain(out, st, so_p, base, mp)
+        assert _same(out_k[-1], out[-1]), (case, t, b, base)
+        assert _same(so_k[rows], so_p[rows]), (case, t, b, base)

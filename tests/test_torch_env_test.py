@@ -307,3 +307,98 @@ def test_mod_depth_split_equals_the_quotient(family):
     assert same.all(), (v[~same][:4], env[~same][:4])
     if family in ("carrier", "equal"):
         assert (got == 0).any()   # the split takes its case
+
+
+# pair_probe_kernel's envelope warp (condition_step.cuh::CondPairChain)
+# takes the same vote, then steps two samples at a time: the second
+# sample's test runs against each envelope the first can leave -- the
+# update c_u, the seed v1 and the hold env -- before the first resolves,
+# each with cond_env_near_pos alone in a group the vote lets pass.  Here
+# every candidate that can be selected (env and c_u always, v1 while the
+# clock is below one ETU) must be positive and finite, and the
+# divide-free test against it must equal the quotient, under random
+# decisions and under the chain's own; the pairs must give the serial
+# chain's envelopes.
+def pair_group(env, pcount, v, clock, etu, silence, w0, w1, rng=None):
+    """GROUP steps of the pair chain per lane (numpy, float32), the
+    outcome of each step drawn from rng when given (update, hold or seed
+    where the clock allows it) instead of the tests; returns (env after
+    each step [n, GROUP], the candidates checked)."""
+    out = np.empty(v.shape, F32)
+    checked = 0
+    for k in range(0, GROUP, 2):
+        v1, v2 = v[:, k], v[:, k + 1]
+        with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+            c_u = (env * w0 + v1 * w1).astype(F32)
+        seed1 = (clock + k) < etu
+        for cand, live in ((env, np.ones(env.size, bool)),
+                           (c_u, np.ones(env.size, bool)), (v1, seed1)):
+            c = cand[live]
+            assert ((c > 0) & np.isfinite(c)).all(), k
+            assert_same(v2[live], c)
+            checked += int(live.sum())
+        n1, n_u = env_near(v1, env), env_near(v2, c_u)
+        n_s, n_h = env_near(v2, v1), env_near(v2, env)
+        p1 = (pcount + F32(1.0)).astype(F32)
+        if rng is None:
+            u1 = n1 | (p1 > silence)
+            s1 = seed1
+        else:
+            pick = rng.integers(0, 3, env.size)
+            u1, s1 = pick == 0, (pick == 2) & seed1
+        env1 = np.where(u1, c_u, np.where(s1, v1, env)).astype(F32)
+        n2 = np.where(u1, n_u, np.where(s1, n_s, n_h))
+        pc1 = np.where(u1, F32(0.0), p1).astype(F32)
+        p2 = (pc1 + F32(1.0)).astype(F32)
+        with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+            c2u = (env1 * w0 + v2 * w1).astype(F32)
+        seed2 = (clock + k + 1) < etu
+        if rng is None:
+            u2, s2 = n2 | (p2 > silence), seed2
+        else:
+            pick = rng.integers(0, 3, env.size)
+            u2, s2 = pick == 0, (pick == 2) & seed2
+        env = np.where(u2, c2u, np.where(s2, v2, env1)).astype(F32)
+        pcount = np.where(u2, F32(0.0), p2).astype(F32)
+        out[:, k], out[:, k + 1] = env1, env
+    return out, checked
+
+
+@pytest.mark.parametrize("decisions", ["chain", "random"])
+@pytest.mark.parametrize("clock", sorted(CLOCKS))
+@pytest.mark.parametrize("name", ["3.2MS/s", "10MS/s", "40MS/s",
+                                  "b_low_w0", "a_low_w1"])
+def test_pair_vote_covers_every_candidate(name, clock, decisions):
+    w0, w1 = (F32(w) for w in WEIGHTS[name])
+    etu = 94
+    silence = F32(etu * 10.0)
+    rng = np.random.default_rng(sorted(WEIGHTS).index(name) * 11
+                                + len(clock) + len(decisions))
+    n = 20000
+    env = np.ldexp(rng.uniform(1, 2, n), rng.integers(-149, 110, n)).astype(F32)
+    env[:4] = [2.0**100, 2.0**-60, 2.0**-100, 1e-45]
+    scale = np.where(rng.random(n) < 0.5, env,
+                     np.ldexp(1.0, rng.integers(-110, 100, n))).astype(F32)
+    v = (scale[:, None] * rng.uniform(0.9, 1.1, (n, GROUP))).astype(F32)
+    # zeros, and at the group's first samples (a pair's v1 while seeding)
+    v[rng.random((n, GROUP)) < 0.1] = 0.0
+    v[rng.random(n) < 0.05, 0] = 0.0
+    v[:4] = [[2.0**100], [0.0], [2.0**-100], [2.0**100]]
+    pcount = rng.choice(np.array([0, 1, 900, 939, 940, 941, 5000, 2**24],
+                                 F32), n)
+    clocks = rng.choice(CLOCKS[clock], n)
+    chosen = group_positive(env, v, clocks, etu, w0, w1)
+    assert chosen.sum() > n // 50
+    args = (env[chosen], pcount[chosen], v[chosen], clocks[chosen], etu,
+            silence, w0, w1)
+    got, checked = pair_group(*args, rng=rng if decisions == "random"
+                              else None)
+    # env and c_u at every pair, and v1 at the pairs that can seed: case
+    # (a) with call-local clocks below one ETU
+    assert checked >= GROUP * chosen.sum()
+    if clock == "call_local" and w1 >= 2.0**-40:
+        assert checked > GROUP * chosen.sum()
+    assert ((got > 0) & np.isfinite(got)).all(), name
+    if decisions == "chain":
+        serial = float_counter_group(*args)
+        assert np.array_equal(got.view(np.uint32), serial.view(np.uint32))

@@ -275,12 +275,23 @@ def test_v2_scan_launcher_host_choices():
 @pytest.mark.parametrize("shape", [(1, 1, (1 << 27) + 1),
                                    (1, 2**31 - 16, 1)])
 def test_serial_probe_launcher_refuses_what_it_was_not_built_for(shape):
-    """serial_probe_kernel: five warps per 32 lanes (the pair kernel keeps
-    one); 32-bit offsets reach 16 rows of at most 2^27 lanes, and the int32
-    clock its last group."""
+    """serial_probe_kernel: five warps per 32 lanes (the pair kernel the
+    same five); 32-bit offsets reach 16 rows of at most 2^27 lanes, and the
+    int32 clock its last group."""
     from nfclab_torch.kernels import probes as kp
 
-    assert kp.SERIAL_THREADS == 5 * 32 and kp.PAIR_THREADS == 32
+    assert kp.SERIAL_THREADS == 5 * 32 and kp.PAIR_THREADS == 5 * 32
     value = torch.zeros(1, 1, 1).expand(*shape)
     with pytest.raises(ValueError, match="serial_probe_kernel takes"):
         kp.launch_probe(value, (), None, pair=False)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, (1 << 27) + 1),
+                                   (1, 2**31 - 16, 1)])
+def test_pair_probe_launcher_refuses_what_it_was_not_built_for(shape):
+    """pair_probe_kernel takes serial_probe_kernel's block and its limits."""
+    from nfclab_torch.kernels import probes as kp
+
+    value = torch.zeros(1, 1, 1).expand(*shape)
+    with pytest.raises(ValueError, match="pair_probe_kernel takes"):
+        kp.launch_probe(value, (), None, pair=True)

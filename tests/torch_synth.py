@@ -200,3 +200,63 @@ def probe_boundary_lanes(lanes: int, t: int, seed: int = 0, lead: int = 100,
     if off is not None:
         out[::4, off[0] : off[1]] = 0.0
     return np.ascontiguousarray(out.T)
+
+
+# the mask's SD tests, focused: (output channel, row period, d, p2, which
+# threshold) -- a target box value every `period` rows is b0 = B(t - d) of
+# the test at row r + d, and its gap and previous rows are 0, so the
+# test's numerator is the target itself (the V test's ug at d = 473, with
+# its u0 at 378 zero)
+MASK_FOCI = {
+    "a": (("bv47", 48, 0, 47, "a"), ("bv24", 32, 94, 24, "a"),
+          ("bv12", 16, 141, 12, "a"), ("bv94", 64, 473, 94, "v")),
+    "f": (("bv24", 32, 0, 24, "f"), ("bv12", 16, 0, 12, "f"),
+          ("bv47", 48, 0, 47, "a"), ("bv94", 64, 473, 94, "v")),
+}
+MASK_SPECIAL_ENV = (0.0, -0.0, -1.5, -1e-45, 1e-45, float("inf"),
+                    float("-inf"), float("nan"), 3.4028235e38)
+
+
+def mask_boundary_out(t: int, b: int, seed: int, case: str, mp):
+    """(out [15, t, b], state [1285, b]) f32 that put fused_v2's mask tests
+    on their boundary: env log-uniform over the float32 range with one
+    stream in 16 special (zero, -0, negative, subnormal, inf, NaN,
+    FLT_MAX); each focused test's numerator at -2..2 ulps of the float32
+    nearest p2 * m(y), m(y) the midpoint of its threshold y = thr * env and
+    y's successor (a tie where it is a float32), signed; the filtered
+    channel at -2..2 ulps of the NFC-B edge; the state small and seeded.
+    mp: the float32 mask parameters (power_thr, a, b, f, v)."""
+    from nfclab_torch.experiments import fused_v2 as v2
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    _, a_thr, b_min_deep, f_thr, v_thr = (f32(x) for x in mp)
+    thr = {"a": a_thr, "f": f_thr, "v": v_thr}
+    env = np.ldexp(rng.uniform(1, 2, (t, b)),
+                   rng.integers(-149, 128, (t, b))).astype(f32)
+    special = rng.random((t, b)) < 1 / 16
+    env[special] = rng.choice(np.array(MASK_SPECIAL_ENV, f32),
+                              int(special.sum()))
+    out = np.zeros((v2.N_OUT, t, b), f32)
+    out[v2._ROW["envelope"]] = env
+
+    def nudge(x, k):
+        for step in range(2):
+            up, down = k > step, k < -step
+            x[up] = np.nextafter(x[up], f32(np.inf))
+            x[down] = np.nextafter(x[down], f32(-np.inf))
+        return x
+
+    with np.errstate(over="ignore", invalid="ignore"):
+        for name, period, d, p2, which in MASK_FOCI[case]:
+            rows = np.arange(0, t - d, period)
+            y = (thr[which] * env[rows + d]).astype(f32)
+            up = np.nextafter(y, f32(np.inf))
+            lim = p2 * (y.astype(np.float64) + up.astype(np.float64)) * 0.5
+            n = nudge(lim.astype(f32), rng.integers(-2, 3, y.shape))
+            sign = rng.choice(np.array([1, -1], f32), y.shape)
+            out[v2._ROW[name], rows] = n * sign
+        edge = (-(b_min_deep * env)).astype(f32)
+        out[v2._ROW["filtered"]] = nudge(edge, rng.integers(-2, 3, env.shape))
+    state = (rng.random((v2.NSTATE, b), dtype=f32) * f32(1e-2))
+    return out, state
