@@ -15,27 +15,33 @@ Phases (any failure raises and the script exits non-zero):
    x 2 chunks of 4096 samples with carried state -- the fused frontend
    kernels once with every output and once with detect_mask alone, the
    conditioning kernel from a seeded initial state with non-zero clocks and
-   pulse counts; every output and the state must be bit-exact.
+   pulse counts; every output and the state must be bit-exact.  The mask
+   kernel also at 40 MS/s, on the plain scan's channels (the scan's rings
+   do not fit a block above 27 MS/s).
    Conditioning must be bit-exact against the C++ oracle on 8 streams, for
    both kernels.  Then both scans on lanes that put the envelope test on
    its boundary (check_boundary: 2**22 streams each, special values, and
    ragged shapes).  Repeated at 3.2 MS/s.  The experiments/ scans on
    boundary lanes too, the pair probe equal to the serial one there, and
    the v2 mask kernel on crafted outputs whose SD tests sit on their
-   boundary (check_mask_boundary).  Then the experiments/ kernels,
-   bit-exact against their plain versions: the conditioning probes at one
-   group x 4096 samples x 2048 lanes (pair equal to serial), the copy
-   probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks of 4096
-   with carried state.
+   boundary (check_mask_boundary).  The fused mask kernel's geometry
+   against the binding's for every plan of 0.5-40 MS/s, its refusals, and
+   the kernel on crafted channels whose SD tests sit on their boundary, at
+   10, 3.2 and 40 MS/s (check_ff_mask_boundary).  Then the experiments/
+   kernels, bit-exact against their plain versions: the conditioning
+   probes at one group x 4096 samples x 2048 lanes (pair equal to serial),
+   the copy probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks
+   of 4096 with carried state.
 3. The kernels against their plain versions at the main paths' shape and
    on their inputs: two [65536, 1024] chunks of the mask path's captures,
    the second with carried state at a folded clock base, and one 1024 x
    65536 chunk with carried state for the conditioning kernel; bit-exact
-   again, and the conditioning kernel at the repair shape (1 x 65536)
-   equal to stream 0 of that run.  Kernel times and ns per step on those
-   inputs (CUDA events over 5 launches), the repair shape's too, plain
-   times from the comparison; the scans' ptxas register and spill lines
-   and shared memory per block.
+   again (the mask kernel also with mod_depth), and the conditioning
+   kernel at the repair shape (1 x 65536) equal to stream 0 of that run.
+   Kernel times and ns per step on those inputs (CUDA events over 5
+   launches), the repair shape's too, plain times from the comparison;
+   the scans' ptxas register and spill lines and shared memory per block,
+   the mask kernel's geometry at 10, 3.2 and 40 MS/s.
 4. The mask path at full width: chained_batch_masks over 1024 captures of
    2,097,152 samples at 10 MS/s (one production window: 32 chunks of
    65536), the launch counts read around exactly that call and its time
@@ -175,15 +181,20 @@ def _params(rate):
 def check_kernels(dev, rate, chunk, n_chunks, errs):
     """Each kernel against its plain version on the same inputs, chunk by
     chunk with carried state, for both selections; then the whole
-    fused_frontend against fused_frontend_plain.  Returns the all-output
-    run's [B, T] outputs (for the oracle check) and the input."""
+    fused_frontend against fused_frontend_plain.  Above 27 MS/s, where the
+    scan's rings do not fit a block (launch_scan refuses the plan), the
+    mask kernel alone, on the plain scan's channels.  Returns the
+    all-output run's [B, T] outputs (for the oracle check; None without
+    the scan) and the input."""
     import torch
 
     from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.kernels import fused as kf
     from torch_synth import mixed_lanes
 
     pt, mp, _ = _params(rate)
     plan = ff.kernel_plan(rate)
+    scan = kf.scan_smem(ff._layout(plan).ring_rows) <= kf.SMEM_LIMIT
     x = torch.from_numpy(mixed_lanes(STREAMS, n_chunks * chunk, seed=5)).to(dev)
     extra_names = set(ff._extra_names(plan))
     outs_all = None
@@ -195,12 +206,15 @@ def check_kernels(dev, rate, chunk, n_chunks, errs):
         for c in range(n_chunks):
             base = c * chunk
             x_tm = x[:, base : base + chunk].t().contiguous()
-            deps_k, extra_k, so_k = ff.fused_scan(x_tm, st_k, base, pt, plan,
-                                                  keep)
             deps_p, extra_p, so_p = ff._scan_plain(x_tm, st_p, base, pt,
                                                    plan, keep)
-            pairs = [(deps_k, deps_p), (so_k, so_p)]
-            pairs += [(extra_k[n], extra_p[n]) for n in keep]
+            if scan:
+                deps_k, extra_k, so_k = ff.fused_scan(x_tm, st_k, base, pt,
+                                                      plan, keep)
+                pairs = [(deps_k, deps_p), (so_k, so_p)]
+                pairs += [(extra_k[n], extra_p[n]) for n in keep]
+            else:
+                pairs = []
             for a, b in pairs:
                 errs["fused_scan"] = max(errs["fused_scan"], _err(a, b))
                 if not _same(a, b):
@@ -222,6 +236,12 @@ def check_kernels(dev, rate, chunk, n_chunks, errs):
                         f"select={select}")
             st_k, st_p = so_mk, so_p
         torch.cuda.synchronize()
+        if not scan:
+            log(f"fused_mask == plain (bit-exact) at {rate} Hz, {STREAMS} "
+                f"streams x {n_chunks} x {chunk}, select={select}, on the "
+                f"plain scan's channels (the scan's rings do not fit a "
+                f"block at this rate)")
+            continue
         # the public entry point through both kernels vs fully plain
         got, st = None, None
         want, stw = None, None
@@ -614,6 +634,122 @@ def check_mask_boundary(dev, errs):
         f"geometry {got}")
 
 
+FF_MASK_RATES = (10_000_000, 3_200_000, 40_000_000)
+
+
+def check_ff_mask_geometry():
+    """ff_mask_kernel's geometry as the library computes it against the
+    binding's mirror (kernels/fused.mask_geometry), for every plan from
+    0.5 to 40 MS/s and each selection; then a plan outside the kernel's
+    limits must be refused, by the binding and by the library's launcher,
+    and so must a state_out that is state_in.  Returns {streams per block:
+    plans}."""
+    import ctypes
+
+    import torch
+
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.kernels import fused as kf
+
+    lib = kf.library()
+    streams = {}
+    for rate in range(500_000, 40_000_001, 100_000):
+        plan = ff.kernel_plan(rate)
+        lay = ff._layout(plan)
+        for sel in ((True, False), (True, True), (False, True),
+                    (False, False)):
+            got = kf.library_mask_geometry(lib, plan, lay, *sel)
+            want = kf.mask_geometry(plan, *sel)
+            if got != want:
+                raise AssertionError(f"ff_mask_kernel geometry at {rate} Hz, "
+                                     f"{sel}: library {got} != binding "
+                                     f"{want}")
+        w = kf.mask_geometry(plan)[5]   # the mask alone
+        streams[w] = streams.get(w, 0) + 1
+    # a plan outside the kernel's limits (two NFC-A rates): refused by the
+    # binding and by the library's launcher
+    plan = ff.kernel_plan(RATE)
+    lay = ff._layout(plan)
+    odd = plan._replace(a_rates=plan.a_rates[:2])
+    dev = torch.device("cuda", 0)
+    deps = torch.zeros(len(plan.bv_widths) + 2, 256, 64, device=dev)
+    x = torch.zeros(256, 64, device=dev)
+    st = torch.zeros(plan.nstate, 64, device=dev)
+    so = torch.zeros_like(st)
+    mk = torch.empty(256, 64, dtype=torch.uint8, device=dev)
+    try:
+        kf.launch_mask(deps, x, st, so, mk, None, (0.01,) * 5, odd, lay)
+    except ValueError as e:
+        log(f"launch_mask refuses a plan it cannot hold: {e}"[:160])
+    else:
+        raise AssertionError("launch_mask took a plan it cannot hold")
+    a = kf.mask_args(deps, x, st, so, mk, None, (0.01,) * 5, odd, lay)
+    code = lib.nfclab_ff_mask(ctypes.byref(a), 0, kf.MASK_THREADS,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if code == 0:
+        raise AssertionError("nfclab_ff_mask queued a plan it cannot hold")
+    # state_out over state_in: refused too
+    try:
+        kf.launch_mask(deps, x, st, st, mk, None, (0.01,) * 5, plan, lay)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("launch_mask took state_out == state_in")
+    a = kf.mask_args(deps, x, st, st, mk, None, (0.01,) * 5, plan, lay)
+    if lib.nfclab_ff_mask(ctypes.byref(a), 0, kf.MASK_THREADS,
+                          torch.cuda.current_stream(dev).cuda_stream) == 0:
+        raise AssertionError("nfclab_ff_mask queued state_out == state_in")
+    return streams
+
+
+def check_ff_mask_boundary(dev, errs):
+    """ff_mask_kernel against _mask_plain (mask, mod_depth and the history
+    rows, bit-exact) on crafted channels whose SD numerators sit on their
+    boundary (torch_synth.ff_mask_boundary_deps: -2..2 ulps of p2 m(y),
+    and at and inside the edge of the kernel's float32 band, in every
+    binade of env, special envelopes, lookbacks before the chunk on the
+    boundary too), at 10, 3.2 and 40 MS/s, under power_thr -1, 0 and the
+    default: a span boundary with a ragged last span and B not a multiple
+    of 4 (4-byte staging), T below the largest lag (every V lookback from
+    the history), a 1024-stream case with mask alone.  First the geometry
+    (check_ff_mask_geometry)."""
+    import torch
+
+    from nfclab_torch.dsp import fused_frontend as ff
+    from torch_synth import ff_mask_boundary_deps
+
+    streams = check_ff_mask_geometry()
+    cases = (((-1.0, 0.75, 0.10, 0.50, 0.50), 2600, 8195, 0, True),
+             ((0.0, 1.0, 0.10, 0.25, 1.0), 300, 4096, 1, True),
+             ((0.01, 0.75, 0.10, 0.50, 0.50), 4196, 1024, 0, False),
+             ((0.01, 0.75, 0.10, 0.50, 0.50), 700, 2052, 1, True))
+    for rate in FF_MASK_RATES:
+        plan = ff.kernel_plan(rate)
+        hist = torch.zeros(plan.nstate, dtype=torch.bool, device=dev)
+        lay = ff._layout(plan)
+        hist[lay.hist_off : lay.hist_off + lay.hist_rows] = True
+        for i, (mp, t, b, case, md) in enumerate(cases):
+            deps, value, st = (
+                torch.from_numpy(a).to(dev) for a in ff_mask_boundary_deps(
+                    plan, t, b, 300 + i, case, mp))
+            so_k, so_p = torch.zeros_like(st), torch.zeros_like(st)
+            got = ff.fused_mask(deps, value, st, so_k, mp, plan, True, md)
+            want = ff._mask_plain(deps, value, st, so_p, mp, plan, True, md)
+            what = (f"ff mask boundary at {rate} Hz, case {case}, {b} x {t}, "
+                    f"mp {mp}, mod_depth {md}")
+            for n in want:
+                _hold(errs, "fused_mask", got[n], want[n], f"{n}, {what}")
+            _hold(errs, "fused_mask", so_k[hist], so_p[hist],
+                  f"history rows, {what}")
+            del deps, value, st, so_k, so_p, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"fused_mask == plain (bit-exact) on SD-boundary channels at "
+        f"{FF_MASK_RATES} Hz: 8195 x 2600, 4096 x 300, 1024 x 4196, "
+        f"2052 x 700; geometry equal for every plan of 0.5-40 MS/s, streams "
+        f"per block {streams}")
+
+
 def check_condition_main_shape(dev, caps, errs):
     """cond_scan_kernel against its plain version at the main path's
     shape, on its captures: one [65536, 1024] chunk (the second of each
@@ -693,9 +829,10 @@ def check_main_shape(dev, caps, errs):
     on its own inputs: [65536, 1024] chunks of the main path's captures
     with its mask params, chunk 0 from fresh state at clock 0 and chunk 1
     with the state carried from chunk 0 at a folded clock base
-    (mod + lo % mod, where the engine's later windows start).  Kernel
-    times are taken on chunk 1's inputs, plain times from its comparison
-    run.  Returns the times and each kernel's bound."""
+    (mod + lo % mod, where the engine's later windows start); on each
+    chunk the mask kernel again with mod_depth.  Kernel times are taken on
+    chunk 1's inputs, plain times from its comparison run.  Returns the
+    times, each kernel's bound and the mask's two-kernel floors."""
     import numpy as np
     import torch
 
@@ -742,14 +879,37 @@ def check_main_shape(dev, caps, errs):
                     f"chunk {c} (base {base}): max err {e}")
         log(f"kernels == plain (bit-exact) at {STREAMS} streams x {chunk}, "
             f"chunk {c}, base {base}, select=('detect_mask',)")
+        # the mask kernel with mod_depth too, on the same inputs
+        so_md, so_pmd = so_k.clone(), so_p.clone()
+        mk_md = ff.fused_mask(deps_k, x_tm, st_in, so_md, mp, plan, True,
+                              True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk_pmd = ff._mask_plain(deps_p, x_tm, st_p, so_pmd, mp, plan, True,
+                                True)
+        torch.cuda.synchronize()
+        t["mask_md_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        for what, a, b in (("detect_mask", mk_md["detect_mask"],
+                            mk_pmd["detect_mask"]),
+                           ("mod_depth", mk_md["mod_depth"],
+                            mk_pmd["mod_depth"]),
+                           ("state", so_md[hist], so_pmd[hist])):
+            _hold(errs, "fused_mask", a, b,
+                  f"{what} with mod_depth at the main path's shape, chunk "
+                  f"{c} (base {base})")
+        log(f"fused_mask == plain (bit-exact) at {STREAMS} streams x "
+            f"{chunk}, chunk {c}, select=('detect_mask', 'mod_depth')")
         st_k, st_p = so_k, so_p
-        del deps_p, so_p, mk_p
+        del deps_p, so_p, mk_p, so_md, so_pmd, mk_md, mk_pmd
     so_t = so_k.clone()
     t["scan_ms"] = _event_ms(
         lambda: ff.fused_scan(x_tm, st_in, base, pt, plan), 5)
     t["scan_ns_per_step"] = t["scan_ms"] * 1e6 / chunk
     t["mask_ms"] = _event_ms(
         lambda: ff.fused_mask(deps_k, x_tm, st_in, so_t, mp, plan), 5)
+    t["mask_md_ms"] = _event_ms(
+        lambda: ff.fused_mask(deps_k, x_tm, st_in, so_t, mp, plan, True,
+                              True), 5)
     t["chunk_mask_ms"] = _event_ms(
         lambda: ff.run_chunk(x_tm, st_in, base, pt, mp, plan,
                              ("detect_mask",)), 5)
@@ -771,13 +931,23 @@ def check_main_shape(dev, caps, errs):
                 + 2 * len(plan.b_delays) + 5)
     t["scan_bound"] = _bound(4 * n + 2 * (state_b - hist_b), scan_ops * n)
     t["mask_bound"] = _bound(n + 2 * hist_b, mask_ops * n)
+    # the floor of the two-kernel split: the mask kernel reads the n_bv + 2
+    # dependency channels once (24 B a sample at 10 MS/s) and writes the
+    # mask, 25 B; with mod_depth also the samples in and mod_depth out, 8 B
+    # more; and it reads and writes the history rows
+    dep_b = 4 * (nbv + 2)
+    t["two_kernel_floor_ms"] = _bound((dep_b + 1) * n + 2 * hist_b,
+                                      mask_ops * n)[0]
+    t["two_kernel_floor_md_ms"] = _bound((dep_b + 9) * n + 2 * hist_b,
+                                         (mask_ops + 4) * n)[0]
     t["chunk_mask_bound"] = _bound(5 * n + 2 * state_b,
                                    (scan_ops + mask_ops) * n)
     return t
 
 
 SCANS = ("ff_scan_kernel", "cond_scan_kernel", "v2_scan_kernel",
-         "serial_probe_kernel", "pair_probe_kernel", "v2_mask_kernel")
+         "serial_probe_kernel", "pair_probe_kernel", "v2_mask_kernel",
+         "ff_mask_kernel")
 
 
 def scan_resources(kbuild) -> dict:
@@ -829,18 +999,26 @@ def log_scan_resources(kbuild) -> dict:
         log(f"  ff_scan_kernel at {rate} Hz: group {kf.scan_group(plan)}, "
             f"{kf.scan_smem(ff._layout(plan).ring_rows)} B of shared memory "
             f"per block of {kf.SCAN_THREADS} threads")
+    for rate in FF_MASK_RATES:
+        g = kf.mask_geometry(ff.kernel_plan(rate), True, True)
+        log(f"  ff_mask_kernel at {rate} Hz, mask and mod_depth: {g[5]} "
+            f"streams a block of {kf.MASK_THREADS} threads, {g[6]} B of "
+            f"shared memory, {g[7]} lag windows (channel, lmin, lmax, rows, "
+            f"first row): {g[8:]}")
     res = scan_resources(kbuild)
     dyn = {"ff_scan_kernel": kf.scan_smem(ff._layout(ff.kernel_plan(RATE))
                                           .ring_rows),
            "cond_scan_kernel": 0, "v2_scan_kernel": kv.scan_smem(),
            "serial_probe_kernel": 0, "pair_probe_kernel": 0,
-           "v2_mask_kernel": kv.mask_smem()}
+           "v2_mask_kernel": kv.mask_smem(),
+           "ff_mask_kernel": kf.mask_geometry(ff.kernel_plan(RATE))[6]}
     threads = {"ff_scan_kernel": kf.SCAN_THREADS,
                "cond_scan_kernel": kc.THREADS,
                "v2_scan_kernel": kv.SCAN_THREADS,
                "serial_probe_kernel": kp.SERIAL_THREADS,
                "pair_probe_kernel": kp.PAIR_THREADS,
-               "v2_mask_kernel": kv.MASK_THREADS}
+               "v2_mask_kernel": kv.MASK_THREADS,
+               "ff_mask_kernel": kf.MASK_THREADS}
     for k in SCANS:
         r = res.setdefault(k, {"registers": 0, "spill_bytes": 0,
                                "static_smem": 0})
@@ -1479,11 +1657,13 @@ def main(argv=None) -> int:
     x, outs = check_kernels(dev, RATE, CHECK_CHUNK, 2, errs)
     check_oracle(x, outs, RATE)
     check_kernels(dev, 3_200_000, CHECK_CHUNK, 2, errs)
+    check_kernels(dev, 40_000_000, CHECK_CHUNK, 2, errs)
     del x, outs
     for rate in (RATE, 3_200_000):
         check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
         check_boundary(dev, rate, errs)
     check_boundary_experiments(dev, errs)
+    check_ff_mask_boundary(dev, errs)
     check_experiment_kernels(dev, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
@@ -1537,6 +1717,12 @@ def main(argv=None) -> int:
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     per_step = {"fused_scan": {"ns_per_step": tk["scan_ns_per_step"]},
+                "fused_mask": {
+                    "two_kernel_floor_ms": tk["two_kernel_floor_ms"],
+                    "md_ms": tk["mask_md_ms"],
+                    "md_plain_ms": tk["mask_md_plain_ms"],
+                    "two_kernel_floor_md_ms": tk["two_kernel_floor_md_ms"],
+                    **resources["ff_mask_kernel"]},
                 "condition_scan": {
                     "ns_per_step": tk["cond_ns_per_step"],
                     "repair_ms": tk["cond_repair_ms"],

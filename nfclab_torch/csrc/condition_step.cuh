@@ -121,10 +121,11 @@ __device__ __forceinline__ float cond_mod_depth_split(float v, float env)
 // successor; a tie goes to the even one of the two, so it rounds up when
 // y's last bit is 1 (subnormal y included: the same grid, the same rule).
 // With x = n / p2 and p2 > 0 that is n > p2 m, or n = p2 m and y odd.  m
-// has at most 25 significant bits and p2 (12, 24, 47, 94) at most 7, so
-// m, p2 m and the comparison are exact in double, from the subnormals to
-// FLT_MAX.  n = +-inf and NaN compare as the quotient would; a negative n
-// or -0 is not above a positive y either way.  y <= 0 (-0 included), y =
+// has at most 25 significant bits and p2 (a box width: 12, 24, 47, 94 in
+// v2, 1 to 378 in the plans of 0.5 to 40 MS/s) at most 9, so m, p2 m and
+// the comparison are exact in double, from the subnormals to FLT_MAX.
+// n = +-inf and NaN compare as the quotient would; a negative n or -0 is
+// not above a positive y either way.  y <= 0 (-0 included), y =
 // FLT_MAX, +inf and NaN keep the correctly rounded divide: a rarely taken
 // branch that is part of the semantics.  The A and F tests pass |n| (|RN(n
 // / p2)| = RN(|n| / p2)), the V test its signed n.
@@ -158,6 +159,26 @@ __device__ __forceinline__ bool sd_above(float n, float y, double mid,
 {
     bool above = sd_above_pos(n, y, mid, p2);
     if (__builtin_expect(divide, 0)) above = __fdiv_rn(n, (float)p2) > y;
+    return above;
+}
+
+// A float32 band in front of sd_above (ff_mask_kernel), for y in [2^-100,
+// 2^100] and a divisor p2 with r = RN(1 / p2) normal.  With rlo = RN(r (1 -
+// 2^-20)) and rhi = RN(r (1 + 2^-20)), qlo = RN(n rlo) and qhi = RN(n rhi)
+// are n / p2 (1 -+ 2^-20) within a relative 2^-22 (three roundings of at
+// most 2^-24 each, n / p2 normal).  So qlo > y puts n / p2 above y (1 +
+// 2^-21), beyond the midpoint m(y) <= y (1 + 2^-24): RN(n / p2) > y; and
+// qhi < y puts n / p2 below y (1 - 2^-21): RN(n / p2) <= y.  A subnormal
+// or zero qhi is below y, and n / p2 with it; qlo = +inf is above, and n /
+// p2 with it (n = +inf).  Where neither holds (n / p2 within about 2^-20
+// y of y, or n NaN) the band leaves the test undecided for sd_above.  The
+// A and F tests pass |n|, the V test its signed n, as for sd_above.
+__device__ __forceinline__ bool sd_band(float n, float rlo, float rhi,
+                                        float y, bool &undecided)
+{
+    const bool above = __fmul_rn(n, rlo) > y;
+    const bool below = __fmul_rn(n, rhi) < y;
+    undecided |= !(above | below);
     return above;
 }
 

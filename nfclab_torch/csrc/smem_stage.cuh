@@ -2,8 +2,8 @@
 // shared memory and cp.async copies that arrive on them.
 // Shared by the scans that stage their input (ff_scan_kernel,
 // v2_scan_kernel), the probes that hand their envelope from one warp to
-// another (serial_probe_kernel, pair_probe_kernel) and the v2 mask, which
-// stages its lookback rows (v2_mask_kernel).
+// another (serial_probe_kernel, pair_probe_kernel) and the two masks, which
+// stage their lookback rows (v2_mask_kernel, ff_mask_kernel).
 
 #pragma once
 

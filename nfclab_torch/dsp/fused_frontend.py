@@ -18,9 +18,13 @@ fused_frontend.cu``):
   produces the conditioning outputs and the running box sums, the work
   split over four warps of a block fed by a fifth that stages the samples
   in shared memory, where the rings live too.
-- ``fused_mask``: one thread per (sample, stream) computes ``mod_depth``
-  and ``detect_mask`` from the box and filtered channels at fixed lags, and
-  advances the history sections of the state.
+- ``fused_mask``: parallel in time, a block per 32 (or 16) streams and a
+  span of samples; producer warps stage each lag window of the box,
+  filtered and envelope channels (the lags from ``kernel_plan``, so any
+  rate from 0.5 to 40 MS/s) into shared rings once per span, and consumer
+  warps compute ``mod_depth`` and ``detect_mask`` from them, every SD
+  threshold test without a divide; then every warp advances its share of
+  the history sections of the state.
 
 Inside, the layout is time-major ``[T, B]`` for samples and channels and
 section-major ``[nstate, B]`` for the state, so that neighbouring threads
@@ -530,9 +534,9 @@ def fused_mask(deps: torch.Tensor, value_tm: torch.Tensor,
     deps: the scan's [n_bv + 2, T, B] channels; value_tm [T, B];
     state_in: the chunk's input state (its history rows hold the lookback
     before the chunk).  Writes the advanced history rows into state_out
-    IN PLACE (the scan's fresh output state; no other row is touched) and
-    returns {"detect_mask": [T, B] u8, "mod_depth": [T, B] f32} for the
-    outputs asked for."""
+    IN PLACE (the scan's fresh output state, apart from state_in; no other
+    row is touched) and returns {"detect_mask": [T, B] u8, "mod_depth":
+    [T, B] f32} for the outputs asked for."""
     if _require_device(deps) == "cpu":
         return _mask_plain(deps, value_tm, state_in, state_out, mp, plan,
                            want_mask, want_mod_depth)

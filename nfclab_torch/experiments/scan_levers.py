@@ -40,9 +40,27 @@ them):
 - ``mask_producers1``: the v2 mask with one producer warp instead of 4;
 - ``mask_tile32`` / ``mask_stages4`` / ``mask_tile16``: the v2 mask's
   pipeline as 3 stages of 32 rows, 4 of 32 or 6 of 16 (2 of 64 as built);
+- ``ffmask_divide``: ``ff_mask_kernel``'s SD tests as the correctly
+  rounded divide, with no band and no ``sd_above``;
+- ``ffmask_exact``: no band, every SD test through ``sd_above``;
+- ``ffmask_unstaged``: its lookbacks read from memory where they lie,
+  nothing staged;
+- ``ffmask_md_divide``: its mod_depth divided at every sample
+  (``cond_mod_depth``, no zero split);
+- ``ffmask_warps8``: 8 consumer warps instead of 16, two groups of rows
+  each a sub-tile; ``ffmask_producers2`` / ``ffmask_producers6``: 2 or 6
+  producer warps instead of 4;
+- ``ffmask_tile16`` / ``ffmask_tile32`` / ``ffmask_stages3``: its
+  pipeline as 8 stages of 16 rows (4 teams of 4 consumer warps taking the
+  sub-tiles in turn), 4 of 32 (2 teams of 8) or 3 of 64 (2 of 64 in one
+  team of 16 as built; the last needs 16 streams a block at 10 MS/s);
+  ``ffmask_t40s3w10`` / ``ffmask_t32s4w8``: 3 stages of 40 rows for 10
+  consumer warps, or 4 of 32 for 8, in the rings of 2 x 64;
+- ``ffmask_streams16``: 16 streams a block where 32 fit;
 - ``base`` (with ``--base DIR``, the ``csrc/`` of an earlier checkout
   whose pair probe runs one thread per lane in one warp a block and whose
-  v2 mask runs one thread per (row, stream)): that design as it is.
+  v2 and fused masks run one thread per (row, stream)): that design as it
+  is.
 
 Probes of what bounds a step change what the kernels compute, so their
 outputs are not compared (``PROBES``):
@@ -57,7 +75,8 @@ outputs are not compared (``PROBES``):
 - ``probe_env_only``: the probes' envelope warp alone (serial and pair);
 - ``mask_idle`` / ``mask_no_copy``: the v2 mask's consumers only waiting
   for the producer's copies, or computing on zeroed rings with nothing
-  copied;
+  copied; ``ffmask_idle`` / ``ffmask_no_copy`` the same for
+  ``ff_mask_kernel``;
 - ``env_only``: ``cond_scan_kernel`` with its envelope warp alone;
 - ``unroll8`` / ``unroll32``: groups of 8 or 32 steps instead of 16;
 - ``no_branch``: ``cond_env_near`` without its special-value branch;
@@ -71,19 +90,27 @@ first configuration (4096 x 16384 of its noise, carried state); both
 probes on the probe's own input at one group (1 x 65536 x 2048, where the
 chain's latency bounds them) and at eight (the pair probe's measurement);
 ``v2_mask_kernel`` on the v2 scan's outputs of that bench_v2 chunk and of
-the carrier lanes (1024 x 65536 from a fresh state).  A lever's outputs
-must equal the current kernels' bit for bit, and the pair probe's the
-serial probe's.  Times are CUDA events over 5 launches after a warm-up,
-each variant timed in a forward and a backward pass over the list.  One
-JSON line per variant, one with the SM clock and power draw that
-nvidia-smi reads while the current v2 scan runs, then the card.
+the carrier lanes (1024 x 65536 from a fresh state); ``ff_mask_kernel`` on
+the fused scan's outputs of the carrier lanes (mask alone) and of the
+lanes in ``--lanes`` (a ``.npy`` of [T, 1024] f32 samples, T >= 2 x 65536,
+such as the mask path's captures: its second chunk of 65536 from the state
+of its first, mask alone and mask with mod_depth).  ``--only ffmask``
+builds and times ``ff_mask_kernel``'s variants and probes alone.  A
+lever's outputs must equal the current kernels' bit for bit, and the
+pair probe's the serial probe's.  Times are CUDA events over 5 launches
+after a warm-up, each variant timed in a forward and a backward pass over
+the list.  One JSON line per variant, one with the SM clock and power
+draw that nvidia-smi reads while the current v2 scan runs (the fused
+mask with ``--only ffmask``), then the card.
 
     python -m nfclab_torch.experiments.scan_levers [--base DIR]
+        [--lanes FILE.npy] [--only ffmask]
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import shutil
 import subprocess
@@ -219,6 +246,103 @@ def _mask_pipeline(tile, stages, bv12_256):
         ("#define V2_MASK_STAGES 2", f"#define V2_MASK_STAGES {stages}"),
         _RINGS_OK, *([_BV12_256] if bv12_256 else [])]}
 
+# ff_mask_kernel's levers: its lookbacks from memory, nothing staged
+_FF = "fused_frontend.cu"
+_FF_GLOBAL = """// lookbacks read from memory, where they lie
+template <int W>
+__device__ __forceinline__ const float *ff_mask_src(const FFMaskLaunch &k,
+                                                    const FFMaskLag &l, int j)
+{
+    const FFMaskWin &g = k.win[l.win];
+    const int64_t b = (int64_t)blockIdx.x * W + (threadIdx.x & 31) % W;
+    const int r = j - l.lag;
+    return b < k.a.B ? (r < 0 ? g.hist : g.src) + (int64_t)r * k.a.B + b
+                     : nullptr;
+}
+template <int W, int G>
+__device__ __forceinline__ void ff_mask_global(const FFMaskLaunch &k,
+                                               const FFMaskLag &l, int j0,
+                                               float (&v)[G])
+{
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+        const float *p = ff_mask_src<W>(k, l, j0 + r * (32 / W));
+        v[r] = p ? *p : 0.0f;
+    }
+}
+
+// detect_mask at chunk row j of this lane's stream"""
+_FF_NO_COPY = ("        for (int w = 0; w < k.n_win && lane_ok; ++w) {",
+               "        for (int w = 0; w < 0 && lane_ok; ++w) {")
+FFMASK_UNSTAGED = {_FF: [
+    ("// detect_mask at chunk row j of this lane's stream", _FF_GLOBAL),
+    ("ff_mask_load<W>(col, ", "ff_mask_global<W>(k, "),
+    ("return ff_mask_at<W>(col, l, j);",
+     "const float *p = ff_mask_src<W>(k, l, j); return p ? *p : 0.0f;"),
+    _FF_NO_COPY]}
+FFMASK_MD_DIVIDE = {_FF: [
+    ("cond_mod_depth_split(v[r], env[r])", "cond_mod_depth(v[r], env[r])")]}
+# every SD test as the correctly rounded divide, no band, no sd_above
+FFMASK_DIVIDE = {_FF: [
+    ("sd_band(fabsf(n), k.rla[q], k.rha[q], y[r], slow[r])",
+     "(__fdiv_rn(fabsf(n), (float)k.p2a[q]) > y[r])"),
+    ("sd_band(fabsf(n), k.rlf[q], k.rhf[q], y[r], slow[r])",
+     "(__fdiv_rn(fabsf(n), (float)k.p2f[q]) > y[r])"),
+    ("""sd_band(__fsub_rn(ug[r], u0[r]), k.rlv, k.rhv,
+                            __fmul_rn(a.v_thr, env[r]), slow[r])""",
+     """(__fdiv_rn(__fsub_rn(ug[r], u0[r]), (float)k.p2v)
+                         > __fmul_rn(a.v_thr, env[r]))"""),
+    ("        slow[r] = !(env[r] >= k.env_lo && env[r] <= k.env_hi);",
+     "        slow[r] = false;")]}
+# no band: every test of every row through sd_above (ff_mask_row)
+FFMASK_EXACT = {_FF: [
+    ("        slow[r] = !(env[r] >= k.env_lo && env[r] <= k.env_hi);",
+     "        slow[r] = true;")]}
+
+
+def _ff_define(name, old, new):
+    return (f"#define {name} {old}", f"#define {name} {new}")
+
+
+def _ff_pipeline(tile, stages):
+    return {_FF: [_ff_define("FF_MASK_TILE", 64, tile),
+                  _ff_define("FF_MASK_STAGES", 2, stages)]}
+
+
+FFMASK_STREAMS16 = {_FF: [
+    ("    k->streams = ff_mask_smem(rows, 32) <= FF_SMEM_LIMIT ? 32",
+     "    k->streams = false ? 32")]}
+FFMASK_VARIANTS = {
+    "ffmask_divide": FFMASK_DIVIDE,
+    "ffmask_exact": FFMASK_EXACT,
+    "ffmask_unstaged": FFMASK_UNSTAGED,
+    "ffmask_md_divide": FFMASK_MD_DIVIDE,
+    "ffmask_warps8": {_FF: [_ff_define("FF_MASK_WARPS", 16, 8)]},
+    "ffmask_producers2": {_FF: [_ff_define("FF_MASK_PRODUCERS", 4, 2)]},
+    "ffmask_producers6": {_FF: [_ff_define("FF_MASK_PRODUCERS", 4, 6)]},
+    "ffmask_tile16": _ff_pipeline(16, 8),
+    "ffmask_tile32": _ff_pipeline(32, 4),
+    "ffmask_stages3": _ff_pipeline(64, 3),
+    "ffmask_t40s3w10": {_FF: [*_ff_pipeline(40, 3)[_FF],
+                              _ff_define("FF_MASK_WARPS", 16, 10),
+                              _ff_define("FF_MASK_SPAN", 2048, 2040)]},
+    "ffmask_t32s4w8": {_FF: [*_ff_pipeline(32, 4)[_FF],
+                             _ff_define("FF_MASK_WARPS", 16, 8)]},
+    "ffmask_streams16": FFMASK_STREAMS16,
+}
+FFMASK_PROBES = {
+    "ffmask_idle": {_FF: [
+        ("                ff_mask_group<W>(k, col, J + r0, nv, b, valid);",
+         "                if (B == 0) a.out_mask[0] = (uint8_t)col[r0];")]},
+    "ffmask_no_copy": {_FF: [
+        _FF_NO_COPY,
+        ("    __syncthreads();\n\n    if (warp >= FF_MASK_WARPS) {",
+         "    for (int i = threadIdx.x; i < (k.smem - FF_MASK_BARS) / 4;\n"
+         "         i += blockDim.x)\n"
+         "        rings[i] = 0.0f;\n"
+         "    __syncthreads();\n\n    if (warp >= FF_MASK_WARPS) {")]},
+}
+
 _NEVER = "if (B == 0u) "  # a store no step makes
 _SPECIAL = ("    if (__builtin_expect(!(env > 0.0f && env < INFINITY), 0))\n"
             "        near = cond_env_diff(v, env) < 0.05f;\n")
@@ -305,6 +429,7 @@ PROBES = {
         (_SPECIAL, ""),
         (_TEST, "    return ad <= __fmul_rn(0.05f, env);"),
     ]},
+    **FFMASK_PROBES,
 }
 # every patch of the current sources, for the test that they apply
 VARIANTS = {"quotient": QUOTIENT, "one_path": ONE_PATH, "group1": GROUP1,
@@ -316,7 +441,8 @@ VARIANTS = {"quotient": QUOTIENT, "one_path": ONE_PATH, "group1": GROUP1,
             "mask_warps8": MASK_WARPS8, "mask_producers1": MASK_PRODUCERS1,
             "mask_tile32": _mask_pipeline(32, 3, True),
             "mask_stages4": _mask_pipeline(32, 4, False),
-            "mask_tile16": _mask_pipeline(16, 6, True)}
+            "mask_tile16": _mask_pipeline(16, 6, True),
+            **FFMASK_VARIANTS}
 
 
 def carrier_lanes(streams: int, steps: int, seed: int = 0) -> np.ndarray:
@@ -420,31 +546,118 @@ def _event_ms(fn, reps=5) -> float:
 KEYS = ("cond", "cond_repair", "ff_scan", "v2_scan", "serial_probe",
         "pair_probe", "serial_probe8", "pair_probe8", "v2_mask",
         "v2_mask_carrier")
+FF_KEYS = ("ff_mask_carrier", "ff_mask", "ff_mask_md")
+MASK_PARAMS = (0.01, 0.75, 0.10, 0.50, 0.50)
 
 
-def run(base: Path = None, device="cuda") -> list:
+def _ff_inputs(x_tm, pt, plan, chunks):
+    """The fused scan's outputs on chunk `chunks - 1` of x_tm (65536 rows a
+    chunk) from the state it carries out of the ones before: (deps, the
+    chunk, its input state, its output state)."""
+    st = torch.zeros(plan.nstate, x_tm.shape[1], device=x_tm.device)
+    with torch.no_grad():
+        for c in range(chunks):
+            xc = x_tm[c * STEPS : (c + 1) * STEPS].contiguous()
+            deps, _, so = ff.fused_scan(xc, st, c * STEPS, pt, plan)
+            if c + 1 < chunks:
+                st = so
+    return deps, xc, st, so
+
+
+def _ff_mask(v, inputs, want_md, plan):
+    """ff_mask_kernel of variant v on the inputs; an earlier design
+    (``base``) through its own launch geometry, one thread per (row,
+    stream) in blocks of 256, on the same arguments."""
+    deps, xc, st_in, st_out = inputs
+    if not v.base:
+        out = ff.fused_mask(deps, xc, st_in, st_out, MASK_PARAMS, plan, True,
+                            want_md)
+        return out["detect_mask"], out.get("mod_depth"), st_out
+    T, B = xc.shape
+    out_m = torch.empty(T, B, dtype=torch.uint8, device=xc.device)
+    out_d = torch.empty(T, B, device=xc.device) if want_md else None
+    a = kf.mask_args(deps, xc, st_in, st_out, out_m, out_d,
+                     ff._mask_params(MASK_PARAMS), plan, ff._layout(plan))
+    stream = torch.cuda.current_stream(xc.device).cuda_stream
+    kf.check(v.lib, v.lib.nfclab_ff_mask(ctypes.byref(a), xc.device.index,
+                                         256, stream), "ff_mask (base)")
+    return out_m, out_d, st_out
+
+
+def run(base: Path = None, lanes: Path = None, only: str = None,
+        device="cuda") -> list:
     dev = torch.device(device)
     pt = _params_tuple(SignalParams(RATE))
     plan = ff.kernel_plan(RATE)
     x = torch.from_numpy(carrier_lanes(STREAMS, STEPS)).to(dev)
-    x1 = x[:, :1].contiguous()
-    init = (x[0].clone(), x[0] * 10.0, torch.zeros_like(x[0]), x[0].clone(),
-            torch.zeros(STREAMS, dtype=torch.int32, device=dev),
-            torch.zeros(STREAMS, dtype=torch.int32, device=dev))
-    init1 = tuple(t[:1].contiguous() for t in init)
-    st = torch.zeros(plan.nstate, STREAMS, device=dev)
-    # bench_v2's input, its second chunk from the state of its first
-    rng = np.random.default_rng(0)
-    xv = torch.from_numpy(rng.random((2 * V2_STEPS, V2_STREAMS),
-                                     dtype=np.float32) * np.float32(0.4)
-                          ).to(dev)
-    xv1 = xv[V2_STEPS:].contiguous()
-    xp = psf.probe_input(1, psf.T_PROBE, psf.SUB, dev)
-    xp8 = psf.probe_input(8, psf.T_PROBE, psf.SUB, dev)
+    calls = {}
+    keys = () if only == "ffmask" else KEYS
+    # ff_mask_kernel's inputs: the fused scan's outputs of the carrier
+    # lanes (chunk 0) and of the second chunk of --lanes
+    hist = ff._layout(plan)
+    hist_rows = torch.zeros(plan.nstate, dtype=torch.bool, device=dev)
+    hist_rows[hist.hist_off : hist.hist_off + hist.hist_rows] = True
+    ff_in = {"ff_mask_carrier": _ff_inputs(x, pt, plan, 1)}
+    if lanes is not None:
+        xl = torch.from_numpy(np.load(lanes)[: 2 * STEPS]).to(dev)
+        if xl.shape != (2 * STEPS, STREAMS):
+            raise ValueError(f"--lanes: need [{2 * STEPS}, {STREAMS}] "
+                             f"samples, got {tuple(xl.shape)}")
+        ff_in["ff_mask"] = ff_in["ff_mask_md"] = _ff_inputs(xl, pt, plan, 2)
+        del xl
+    for k, inputs in ff_in.items():
+        calls[k] = (lambda v, i=inputs, md=k.endswith("_md"):
+                    _ff_mask(v, i, md, plan))
+    keys += tuple(k for k in FF_KEYS if k in ff_in)
+    if only != "ffmask":
+        x1 = x[:, :1].contiguous()
+        init = (x[0].clone(), x[0] * 10.0, torch.zeros_like(x[0]),
+                x[0].clone(),
+                torch.zeros(STREAMS, dtype=torch.int32, device=dev),
+                torch.zeros(STREAMS, dtype=torch.int32, device=dev))
+        init1 = tuple(t[:1].contiguous() for t in init)
+        st = torch.zeros(plan.nstate, STREAMS, device=dev)
+        # bench_v2's input, its second chunk from the state of its first
+        rng = np.random.default_rng(0)
+        xv = torch.from_numpy(rng.random((2 * V2_STEPS, V2_STREAMS),
+                                         dtype=np.float32) * np.float32(0.4)
+                              ).to(dev)
+        xv1 = xv[V2_STEPS:].contiguous()
+        xp = psf.probe_input(1, psf.T_PROBE, psf.SUB, dev)
+        xp8 = psf.probe_input(8, psf.T_PROBE, psf.SUB, dev)
+        with Variant("current", kbuild.build()):
+            stv = v2.v2_scan(xv[:V2_STEPS].contiguous(),
+                             torch.zeros(v2.NSTATE, V2_STREAMS, device=dev),
+                             0, pt)[1]
+            # the mask's inputs: the scan's outputs on bench_v2's chunk and
+            # on the carrier lanes (chunk 0, zero state)
+            outv, sov = v2.v2_scan(xv1, stv, V2_STEPS, pt)
+            stc = torch.zeros(v2.NSTATE, STREAMS, device=dev)
+            outc, soc = v2.v2_scan(x, stc, 0, pt)
+        del xv
+
+        def mask(out, st_in, st_out, base_clock):
+            v2.v2_mask(out, st_in, st_out, base_clock, MASK_PARAMS)
+            return out[-1], st_out
+
+        calls.update({
+            "cond": lambda v: ck.condition_scan_tm(x, *init, pt),
+            "cond_repair": lambda v: ck.condition_scan_tm(x1, *init1, pt),
+            "ff_scan": lambda v: ff.fused_scan(x, st, 0, pt, plan),
+            "v2_scan": lambda v: v2.v2_scan(xv1, stv, V2_STEPS, pt),
+            "serial_probe": lambda v: psf.serial_probe(xp),
+            "pair_probe": lambda v: pps.pair_probe(xp),
+            "serial_probe8": lambda v: psf.serial_probe(xp8),
+            "pair_probe8": lambda v: pps.pair_probe(xp8),
+            "v2_mask": lambda v: mask(outv, stv, sov, V2_STEPS),
+            "v2_mask_carrier": lambda v: mask(outc, stc, soc, 0),
+        })
 
     current = kbuild.build()
     variants = [Variant("current", current)]
     for name, patches in VARIANTS.items():
+        if only == "ffmask" and not name.startswith("ffmask"):
+            continue
         variants.append(Variant(
             name, build_variant(name, kbuild.SRC_DIR, patches),
             group=1 if name == "group1" else None,
@@ -453,37 +666,11 @@ def run(base: Path = None, device="cuda") -> list:
         variants.append(Variant("base", build_variant("base", base, {}),
                                 base=True))
     for name, patches in PROBES.items():
+        if only == "ffmask" and not name.startswith("ffmask"):
+            continue
         variants.append(Variant(name, build_variant(name, kbuild.SRC_DIR,
                                                     patches), probe=True))
 
-    with variants[0]:
-        stv = v2.v2_scan(xv[:V2_STEPS].contiguous(),
-                         torch.zeros(v2.NSTATE, V2_STREAMS, device=dev), 0,
-                         pt)[1]
-        # the mask's inputs: the scan's outputs on bench_v2's chunk and on
-        # the carrier lanes (chunk 0, zero state)
-        outv, sov = v2.v2_scan(xv1, stv, V2_STEPS, pt)
-        stc = torch.zeros(v2.NSTATE, STREAMS, device=dev)
-        outc, soc = v2.v2_scan(x, stc, 0, pt)
-    del xv
-    mp = (0.01, 0.75, 0.10, 0.50, 0.50)
-
-    def mask(out, st_in, st_out, base_clock):
-        v2.v2_mask(out, st_in, st_out, base_clock, mp)
-        return out[-1], st_out
-
-    calls = {
-        "cond": lambda: ck.condition_scan_tm(x, *init, pt),
-        "cond_repair": lambda: ck.condition_scan_tm(x1, *init1, pt),
-        "ff_scan": lambda: ff.fused_scan(x, st, 0, pt, plan),
-        "v2_scan": lambda: v2.v2_scan(xv1, stv, V2_STEPS, pt),
-        "serial_probe": lambda: psf.serial_probe(xp),
-        "pair_probe": lambda: pps.pair_probe(xp),
-        "serial_probe8": lambda: psf.serial_probe(xp8),
-        "pair_probe8": lambda: pps.pair_probe(xp8),
-        "v2_mask": lambda: mask(outv, stv, sov, V2_STEPS),
-        "v2_mask_carrier": lambda: mask(outc, stc, soc, 0),
-    }
     # the v2 scan owns every state row but the mask's
     scan_rows = ~v2.mask_state_rows().to(dev)
     want = None
@@ -491,51 +678,68 @@ def run(base: Path = None, device="cuda") -> list:
         if v.probe:
             continue
         with v:
-            # eight groups: the pair probe equals the serial one (20 GB of
-            # outputs each, not kept)
-            for a, b in zip(calls["pair_probe8"](), calls["serial_probe8"]()):
-                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                    raise AssertionError(f"variant {v.name}: pair != serial")
-            got = {k: calls[k]() for k in KEYS if not k.endswith("8")}
-        for a, b in zip(got["pair_probe"], got["serial_probe"]):
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                raise AssertionError(f"variant {v.name}: pair != serial")
-        flat = [*got["cond"], *got["cond_repair"], got["ff_scan"][0],
-                got["ff_scan"][2], got["v2_scan"][0][:-1],
-                got["v2_scan"][1][scan_rows]]
-        for k in ("serial_probe", "pair_probe"):
-            flat += [t.clone() for t in got[k]]
-        for k in ("v2_mask", "v2_mask_carrier"):
-            flat += [got[k][0].clone(), got[k][1][~scan_rows]]
+            flat = []
+            if only != "ffmask":
+                # eight groups: the pair probe equals the serial one (20 GB
+                # of outputs each, not kept)
+                for a, b in zip(calls["pair_probe8"](v),
+                                calls["serial_probe8"](v)):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(f"variant {v.name}: pair != "
+                                             f"serial")
+                got = {k: calls[k](v) for k in KEYS if not k.endswith("8")}
+                for a, b in zip(got["pair_probe"], got["serial_probe"]):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        raise AssertionError(f"variant {v.name}: pair != "
+                                             f"serial")
+                flat += [*got["cond"], *got["cond_repair"], got["ff_scan"][0],
+                         got["ff_scan"][2], got["v2_scan"][0][:-1],
+                         got["v2_scan"][1][scan_rows]]
+                for k in ("serial_probe", "pair_probe"):
+                    flat += [t.clone() for t in got[k]]
+                for k in ("v2_mask", "v2_mask_carrier"):
+                    flat += [got[k][0].clone(), got[k][1][~scan_rows]]
+                del got
+            for k in FF_KEYS:
+                if k in calls:
+                    m, md, so = calls[k](v)
+                    flat += [m.clone(), so[hist_rows].clone()]
+                    flat += [md.clone()] if md is not None else []
         if want is None:
             want = flat
-        elif not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+        elif not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                      for a, b in zip(flat, want)):
             raise AssertionError(f"variant {v.name} differs from current")
-        del got, flat
+        del flat
     del want
     times = {v.name: [] for v in variants}
     for v in variants + variants[::-1]:
         with v:
-            times[v.name].append(tuple(_event_ms(calls[k]) for k in KEYS))
+            times[v.name].append(tuple(_event_ms(lambda: calls[k](v))
+                                       for k in keys))
     rows = []
+    # the clocks under the v2 scan, or under ff_mask_kernel alone
+    probe_key = "v2_scan" if only != "ffmask" else keys[-1]
     with variants[0]:
-        load = clocks_under_load(calls["v2_scan"], 500)
+        load = clocks_under_load(lambda: calls[probe_key](variants[0]), 500)
     steps = {"cond": STEPS, "cond_repair": STEPS, "ff_scan": STEPS,
              "v2_scan": V2_STEPS, "serial_probe": psf.T_PROBE,
              "pair_probe": psf.T_PROBE, "serial_probe8": psf.T_PROBE,
              "pair_probe8": psf.T_PROBE, "v2_mask": V2_STEPS,
-             "v2_mask_carrier": STEPS}
+             "v2_mask_carrier": STEPS, "ff_mask_carrier": STEPS,
+             "ff_mask": STEPS, "ff_mask_md": STEPS}
     for v in variants:
         t = np.array(times[v.name])
         row = {"variant": v.name, "probe": v.probe}
-        for i, key in enumerate(KEYS):
+        for i, key in enumerate(keys):
             row[key + "_ms"] = float(t[:, i].mean())
             row[key + "_ns_per_step"] = float(
                 t[:, i].mean() * 1e6 / steps[key])
             row[key + "_ms_passes"] = [float(a) for a in t[:, i]]
         rows.append(row)
-    rows.append({"during": "500 current v2 scans", **load})
+    rows.append({"during": f"500 current {probe_key} calls", **load})
     return rows
 
 
@@ -543,11 +747,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", type=Path, default=None,
                     help="csrc/ of an earlier checkout (one-warp pair "
-                         "probe, one thread per (row, stream) v2 mask)")
+                         "probe, one thread per (row, stream) masks)")
+    ap.add_argument("--lanes", type=Path, default=None,
+                    help=".npy of [T, 1024] f32 samples, T >= 131072, for "
+                         "ff_mask_kernel's second chunk")
+    ap.add_argument("--only", choices=["ffmask"], default=None,
+                    help="build and time ff_mask_kernel's variants alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_levers: needs a CUDA device")
-    for row in run(args.base):
+    for row in run(args.base, args.lanes, args.only):
         print(json.dumps(row), flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}")
     return 0

@@ -31,7 +31,20 @@ SCAN_TILE_ROWS = 120  # samples per tile: a multiple of every group size
 SCAN_GROUPS = (6, 2, 1)              # instantiated ring-read group sizes
 SCAN_COUNTS = ((4, 2, 3), (3, 2, 3))  # instantiated (bv, q, product) counts
 SCAN_MAX_STREAMS = 1 << 25           # 32-bit offsets within a tile
-MASK_THREADS = 256
+# ff_mask_kernel: a span of rows and 32 streams per block (16 where the
+# plan's rings need it), sixteen consumer warps and four producer warps
+# that stage each lag window of a channel into a shared ring
+MASK_WARPS = 16
+MASK_PRODUCERS = 4
+MASK_THREADS = (MASK_WARPS + MASK_PRODUCERS) * 32
+MASK_TILE_ROWS = 64      # rows of a sub-tile
+MASK_STAGES = 2          # sub-tiles in flight
+MASK_SPAN_ROWS = 2048    # rows of a block's span
+MASK_STREAMS = (32, 16)  # streams per block, the first whose rings fit
+MASK_MAX_WINDOWS = 16
+MASK_PAD = 3             # rows after each ring that mirror its first
+MASK_COUNTS = (3, 2, 2)  # the A, F and B tests of every plan
+MASK_MAX_STREAMS = 1 << 25
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
 
 _p = ctypes.c_void_p
@@ -114,6 +127,13 @@ def bind(path) -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.nfclab_ff_mask.restype = ctypes.c_int
+    # the staged mask's geometry (absent from libraries built before it
+    # staged its lag windows)
+    if hasattr(lib, "nfclab_ff_mask_geometry"):
+        lib.nfclab_ff_mask_geometry.argtypes = [
+            ctypes.POINTER(FFMaskArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+        lib.nfclab_ff_mask_geometry.restype = ctypes.c_int
     lib.nfclab_cond_scan.argtypes = [
         ctypes.POINTER(CondScanArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
@@ -243,18 +263,103 @@ def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
                                    SCAN_THREADS, smem, stream), "ff_scan")
 
 
-def launch_mask(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
-                plan, lay):
-    """Queue ff_mask_kernel on the current stream (mp: float32 mask
-    params)."""
+def mask_ring_rows(spread: int) -> int:
+    """Ring rows of a lag window of the given spread (lmax - lmin): the
+    power of two that holds it and the sub-tiles in flight."""
+    p = 1
+    while p < spread + MASK_STAGES * MASK_TILE_ROWS:
+        p *= 2
+    return p
+
+
+def mask_smem(ring_rows: int, streams: int) -> int:
+    """Shared memory of one ff_mask_kernel block: a full and an empty
+    mbarrier per stage padded to 16 B, then the rings, `streams` columns
+    each."""
+    return (2 * MASK_STAGES * 8 + 15) // 16 * 16 + 4 * streams * ring_rows
+
+
+def mask_lags(plan, want_mask: bool = True, want_md: bool = False) -> dict:
+    """The distinct lags ff_mask_kernel reads for a plan and a selection,
+    sorted, by channel: the raw boxes 0..n_bv-1, filtered n_bv, envelope
+    n_bv + 1, the samples n_bv + 2."""
+    nbv = len(plan.bv_widths)
+    lags = {}
+
+    def add(ch, *ls):
+        lags.setdefault(ch, set()).update(ls)
+
+    if want_mask or want_md:
+        add(nbv + 1, 0)
+    if want_md:
+        add(nbv + 2, 0)
+    if want_mask:
+        for d, gap, _, w in plan.a_rates:
+            add(w, d, d + 1, d + gap)
+        for _, gap, _, w in plan.f_rates:
+            add(w, 0, 1, gap)
+        add(nbv, *plan.b_delays)
+        d, gap, _, w = plan.v_rate
+        add(w, d, d + gap)
+    return {ch: sorted(ls) for ch, ls in sorted(lags.items())}
+
+
+def mask_windows(lags: dict) -> list:
+    """Mirror of the launcher's ff_mask_plan: each channel's sorted lags
+    split into windows where that takes the fewest ring rows (of equal
+    splits the one with fewer windows, then the first cut mask), in channel
+    and lag order, each ring followed by MASK_PAD rows that mirror its
+    first.  Returns [(channel, lmin, lmax, ring rows, first ring row)]."""
+    out, base = [], 0
+    for ch, lag in lags.items():
+        n = len(lag)
+        best = None
+        for cuts in range(1 << (n - 1)):
+            ends = [i for i in range(n) if i == n - 1 or (cuts >> i) & 1]
+            starts = [0] + [e + 1 for e in ends[:-1]]
+            cost = sum(mask_ring_rows(lag[e] - lag[s])
+                       for s, e in zip(starts, ends))
+            if best is None or (cost, len(ends)) < best[:2]:
+                best = (cost, len(ends), starts, ends)
+        for s, e in zip(best[2], best[3]):
+            rows = mask_ring_rows(lag[e] - lag[s])
+            out.append((ch, lag[s], lag[e], rows, base))
+            base += rows + MASK_PAD
+    return out
+
+
+def mask_geometry(plan, want_mask: bool = True, want_md: bool = False) -> list:
+    """ff_mask_kernel's geometry for a plan and a selection, as the library
+    reports it (nfclab_ff_mask_geometry): consumer and producer warps,
+    sub-tile rows, stages, span rows, streams per block (0 where the rings
+    do not fit at 16), shared memory per block, the window count, then per
+    window its channel, least and largest lag, ring rows and first ring
+    row."""
+    counts = (len(plan.a_rates), len(plan.f_rates), len(plan.b_delays))
+    if counts != MASK_COUNTS:
+        raise ValueError(f"ff_mask_kernel takes (A, F, B) test counts "
+                         f"{MASK_COUNTS}, not {counts}")
+    wins = mask_windows(mask_lags(plan, want_mask, want_md))
+    rows = sum(w[3] + MASK_PAD for w in wins)
+    streams = next((w for w in MASK_STREAMS
+                    if mask_smem(rows, w) <= SMEM_LIMIT), 0)
+    return [MASK_WARPS, MASK_PRODUCERS, MASK_TILE_ROWS, MASK_STAGES,
+            MASK_SPAN_ROWS, streams, mask_smem(rows, streams or 16),
+            len(wins), *(x for w in wins for x in w)]
+
+
+def mask_args(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
+              plan, lay) -> FFMaskArgs:
+    """FFMaskArgs for a plan: its lags, history sections and mask
+    parameters (mp, float32), and the tensors' pointers (each may be
+    None)."""
     _limits(plan)
-    lib = library()
-    _, T, B = deps.shape
     a = FFMaskArgs()
     a.value, a.deps, a.state_in, a.state_out = (
         _ptr(value_tm), _ptr(deps), _ptr(state_in), _ptr(state_out))
     a.out_mask, a.out_mod_depth = _ptr(out_mask), _ptr(out_md)
-    a.B, a.T = B, T
+    if deps is not None:
+        _, a.T, a.B = deps.shape
     nbv = len(plan.bv_widths)
     a.n_bv = nbv
     hlen = [h + 128 for h in plan.h_sizes]
@@ -279,8 +384,56 @@ def launch_mask(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
     a.v_d, a.v_gap, a.v_ch = dv, gapv, widxv
     a.v_hoff, a.v_hlen = lay.hist_offs[widxv], hlen[widxv]
     a.v_bit, a.v_p2 = 128, float(p2v)
-    a.rows_main = T if (out_mask is not None or out_md is not None) else 0
+    a.rows_main = a.T if (out_mask is not None or out_md is not None) else 0
     a.hist_rows = sum(hlen)
+    return a
+
+
+def _library_geometry(lib, a, want_mask, want_md, plan) -> list:
+    g = (ctypes.c_int32 * 256)()
+    n = lib.nfclab_ff_mask_geometry(ctypes.byref(a), int(want_mask),
+                                    int(want_md), g, 256)
+    if n < 0:
+        raise ValueError(f"kernel plan exceeds ff_mask_kernel's limits: "
+                         f"{plan}")
+    return list(g[:n])
+
+
+def library_mask_geometry(lib, plan, lay, want_mask: bool = True,
+                          want_md: bool = False) -> list:
+    """ff_mask_kernel's geometry for a plan and a selection as the library
+    computes it (nfclab_ff_mask_geometry)."""
+    a = mask_args(None, None, None, None, None, None, (0.0,) * 5, plan, lay)
+    return _library_geometry(lib, a, want_mask, want_md, plan)
+
+
+def _overlap(x, y) -> bool:
+    a0, b0 = x.data_ptr(), y.data_ptr()
+    return a0 < b0 + y.nbytes and b0 < a0 + x.nbytes
+
+
+def launch_mask(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
+                plan, lay):
+    """Queue ff_mask_kernel on the current stream (mp: float32 mask
+    params).  Raises for a plan outside the kernel's limits or whose lag
+    windows do not fit a block at 16 streams, and where state_out overlaps
+    state_in (the lookbacks read the input state while the history
+    advance writes the output)."""
+    B = deps.shape[2]
+    if B > MASK_MAX_STREAMS:
+        raise ValueError(f"ff_mask_kernel takes at most {MASK_MAX_STREAMS} "
+                         f"streams a call, got {B}")
+    if _overlap(state_in, state_out):
+        raise ValueError("fused_mask needs state_out apart from state_in")
+    lib = library()
+    a = mask_args(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
+                  plan, lay)
+    g = _library_geometry(lib, a, out_mask is not None, out_md is not None,
+                          plan)
+    if g[5] == 0:
+        raise ValueError(
+            f"the mask's lag windows need {g[6]} B of shared memory per "
+            f"block at 16 streams (limit {SMEM_LIMIT}): {g[8:]}")
     stream = torch.cuda.current_stream(deps.device).cuda_stream
     check(lib, lib.nfclab_ff_mask(ctypes.byref(a), deps.device.index,
-                                   MASK_THREADS, stream), "ff_mask")
+                                   (g[0] + g[1]) * 32, stream), "ff_mask")

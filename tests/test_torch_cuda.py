@@ -352,3 +352,32 @@ def test_v2_mask_on_boundary_outputs_on_card(cuda):
         v2._mask_plain(out, st, so_p, base, mp)
         assert _same(out_k[-1], out[-1]), (case, t, b, base)
         assert _same(so_k[rows], so_p[rows]), (case, t, b, base)
+
+
+@pytest.mark.parametrize("rate", [10_000_000, 3_200_000, 40_000_000])
+def test_ff_mask_on_boundary_channels_on_card(cuda, rate):
+    """ff_mask_kernel, staged per lag window and with its float32 band in
+    front of sd_above, on crafted channels whose SD numerators sit on the
+    test's boundary and on the band's edge, lookbacks before the chunk
+    included, with the power gate at -1, 0 and its default; a span
+    boundary, B not a multiple of 4, T below the largest lag.  Bit-exact
+    against _mask_plain: mask, mod_depth and the history rows."""
+    from nfclab_torch.dsp import fused_frontend as ff
+    from torch_synth import ff_mask_boundary_deps
+
+    plan = ff.kernel_plan(rate)
+    lay = ff._layout(plan)
+    rows = slice(lay.hist_off, lay.hist_off + lay.hist_rows)
+    for i, (case, mp, t, b) in enumerate((
+            (0, (-1.0, 0.75, 0.10, 0.50, 0.50), 2100, 1029),
+            (1, (0.0, 1.0, 0.10, 0.25, 1.0), 300, 512),
+            (0, (0.01, 0.75, 0.10, 0.50, 0.50), 700, 64))):
+        deps, value, st = (torch.from_numpy(a).to(cuda)
+                           for a in ff_mask_boundary_deps(plan, t, b, 40 + i,
+                                                          case, mp))
+        so_k, so_p = torch.zeros_like(st), torch.zeros_like(st)
+        got = ff.fused_mask(deps, value, st, so_k, mp, plan, True, True)
+        want = ff._mask_plain(deps, value, st, so_p, mp, plan, True, True)
+        for n in want:
+            assert _same(got[n], want[n]), (rate, case, t, b, n)
+        assert _same(so_k[rows], so_p[rows]), (rate, case, t, b)

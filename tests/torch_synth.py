@@ -260,3 +260,99 @@ def mask_boundary_out(t: int, b: int, seed: int, case: str, mp):
         out[v2._ROW["filtered"]] = nudge(edge, rng.integers(-2, 3, env.shape))
     state = (rng.random((v2.NSTATE, b), dtype=f32) * f32(1e-2))
     return out, state
+
+
+def _mask_tests(plan):
+    """fused_frontend's SD tests of a plan: (channel, d, gap, p2, which)
+    with lags d, d + 1, d + gap (A, F) or d, d + gap (V)."""
+    return ([(w, d, gap, p2, "a") for d, gap, p2, w in plan.a_rates]
+            + [(w, 0, gap, p2, "f") for _, gap, p2, w in plan.f_rates]
+            + [(plan.v_rate[3], plan.v_rate[0], plan.v_rate[1],
+                plan.v_rate[2], "v")])
+
+
+def ff_mask_boundary_deps(plan, t: int, b: int, seed: int, case: int, mp):
+    """(deps [n_bv + 2, t, b], value [t, b], state [nstate, b]) f32 that put
+    fused_frontend's mask tests on their boundary at a kernel plan: env
+    log-uniform over the float32 range with one stream in 16 special; on
+    each raw-box channel the case-th of its SD tests focused (a target box
+    value every P rows, its b1 and bg rows or its u0 row 0, so that the
+    numerator is the target): the target at -2..2 ulps of the float32
+    nearest p2 * m(y), m(y) the midpoint of y = thr * env at the test's row
+    and y's successor, or at p2 y (1 +- 2^-20) +- 2 ulps (the edge of the
+    mask kernel's float32 band), or at p2 y (1 +- 2^-19) (inside it),
+    signed.  The channel runs on through its history section of the state,
+    oldest first, so that lookbacks before the chunk sit on the boundary
+    too.  The filtered channel at -2..2 ulps of the NFC-B edge of the
+    case-th delay; the samples at env times 1, 1 +- 1 ulp, 1/2, 2, -1 or 0,
+    one in 16 special.  mp: the float32 mask parameters (power_thr, a, b,
+    f, v)."""
+    from nfclab_torch.dsp.fused_frontend import _layout
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    _, a_thr, b_min_deep, f_thr, v_thr = (f32(x) for x in mp)
+    thr = {"a": a_thr, "f": f_thr, "v": v_thr}
+    nbv = len(plan.bv_widths)
+    env = np.ldexp(rng.uniform(1, 2, (t, b)),
+                   rng.integers(-149, 128, (t, b))).astype(f32)
+    special = rng.random((t, b)) < 1 / 16
+    env[special] = rng.choice(np.array(MASK_SPECIAL_ENV, f32),
+                              int(special.sum()))
+    hlen = [h + 128 for h in plan.h_sizes]
+    # each history channel with its lookback: rows -hlen .. t - 1
+    ext = [np.zeros((n + t, b), f32) for n in hlen]
+
+    def nudge(x, k):
+        for step in range(2):
+            up, down = k > step, k < -step
+            x[up] = np.nextafter(x[up], f32(np.inf))
+            x[down] = np.nextafter(x[down], f32(-np.inf))
+        return x
+
+    by_channel = {}
+    for test in _mask_tests(plan):
+        by_channel.setdefault(test[0], []).append(test)
+    with np.errstate(over="ignore", invalid="ignore"):
+        for ch, tests in sorted(by_channel.items()):
+            _, d, gap, p2, which = tests[case % len(tests)]
+            if gap < 2:
+                continue
+            period = next(p for p in range(16, 64) if gap % p and
+                          (which == "v" or (gap - 1) % p))
+            lead = d + gap if which == "v" else d   # test row - target row
+            n = hlen[ch]
+            rows = np.arange(-n, t)
+            rows = rows[(rows % period == 0) & (rows + lead >= 0)
+                        & (rows + lead < t)]
+            y = (thr[which] * env[rows + lead]).astype(f32)
+            up = np.nextafter(y, f32(np.inf))
+            mid = p2 * (y.astype(np.float64) + up.astype(np.float64)) * 0.5
+            kind = rng.integers(0, 3, y.shape)
+            side = rng.choice(np.array([1.0, -1.0]), y.shape)
+            band = p2 * y.astype(np.float64) * np.where(
+                kind == 1, 1 + side * 2.0**-20, 1 + side * 2.0**-19)
+            target = np.where(kind == 0, mid, band).astype(f32)
+            target = nudge(target, np.where(kind == 2, 0,
+                                            rng.integers(-2, 3, y.shape)))
+            sign = rng.choice(np.array([1, -1], f32), y.shape)
+            ext[ch][rows + n] = target * sign
+        d = plan.b_delays[case % len(plan.b_delays)]
+        edge = (-(b_min_deep * env[d:])).astype(f32)
+        n = hlen[nbv]
+        ext[nbv][n - d : n - d + edge.shape[0]] = nudge(
+            edge, rng.integers(-2, 3, edge.shape))
+        scale = rng.choice(np.array([1.0, 1.0 + 2**-23, 1.0 - 2**-24, 0.5,
+                                     2.0, -1.0, 0.0], f32), (t, b))
+        value = (env * scale).astype(f32)
+    odd = rng.random((t, b)) < 1 / 16
+    value[odd] = rng.choice(np.array(BOUNDARY_SPECIAL_V, f32),
+                            int(odd.sum()))
+    deps = np.zeros((nbv + 2, t, b), f32)
+    state = rng.random((plan.nstate, b), dtype=f32) * f32(1e-2)
+    offs = _layout(plan).hist_offs
+    for k in range(nbv + 1):
+        deps[k] = ext[k][hlen[k]:]
+        state[offs[k] : offs[k] + hlen[k]] = ext[k][: hlen[k]]
+    deps[nbv + 1] = env
+    return deps, value, state
