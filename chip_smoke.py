@@ -27,7 +27,10 @@ Phases (any failure raises and the script exits non-zero):
    boundary (check_mask_boundary).  The fused mask kernel's geometry
    against the binding's for every plan of 0.5-40 MS/s, its refusals, and
    the kernel on crafted channels whose SD tests sit on their boundary, at
-   10, 3.2 and 40 MS/s (check_ff_mask_boundary).  Then the experiments/
+   10, 3.2 and 40 MS/s (check_ff_mask_boundary).  The fused kernels at
+   the segmented engine's launch shapes (check_segmented_shapes): B = 1
+   (a repair) and B = 48 (3 streams x 16 segments, the speculative seed
+   state), at base 512.  Then the experiments/
    kernels, bit-exact against their plain versions: the conditioning
    probes at one group x 4096 samples x 2048 lanes (pair equal to serial),
    the copy probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks
@@ -73,10 +76,24 @@ Phases (any failure raises and the script exits non-zero):
    (2048 x 65536); then each probe kernel against its
    plain version at its shape (pair equal to serial at 16384 lanes) and
    fused_v2's kernels on two 4096 x 16384 chunks with carried state.
-The line before the last is the card's name and power limit; the one
-before it a JSON object with one entry per kernel.  The last line is
-{"ok": true, "device": {...}}.  --kernels-only stops after phase 2, for
-a first call after a kernel change.
+9. The live farm, CudaStreamFarm(fetch="mask", k_chunks=32,
+   walk_threads=8), fed 262,144 samples at a time through one reused
+   buffer, each stream 4 windows of 2,097,152 samples plus a 40,960-sample
+   tail: (a) 64 streams in the default configuration (16 segments, 1024
+   lanes); (c) the same input with segments=1; (b) 16 streams with a
+   200k-400k-sample field-off stretch across a segment boundary of every
+   window after the first, with adaptive_segments False (repairs) and
+   True (backoff).  Frames equal the host StreamingNfcDecoder's, and on
+   (a) the synthesizer's bytes; (c)'s frames equal (a)'s and its
+   conditioning rows 0-4 after the last window equal (a)'s segmented
+   carry bit for bit.  Wall time, samples/s, the farm's stats, launches
+   per window (each run's counts set to 0 just before it) and peak memory.
+At the end neither JAX nor nfclab may have been imported.  The line
+before the last is the card's name and power limit; the one before it a
+JSON object with one entry per kernel, and the one before that the
+farm's launch counts.  The last line is {"ok": true, "device": {...}}.
+--kernels-only stops after phase 2, for a first call after a kernel
+change.
 """
 
 from __future__ import annotations
@@ -117,6 +134,13 @@ BOUNDARY_SLICE = 1 << 18    # fused_scan streams a call there (its state is
                             # nstate rows a stream: 2109 at 10 MS/s)
 BOUNDARY_V2 = 1 << 18       # v2_scan streams there (1285 state rows each)
 BOUNDARY_PROBE = (1 << 20) + 7  # serial_probe lanes there
+FARM_STREAMS = 64         # phase 9a: x 16 segments = the 1024-lane policy
+FARM_WINDOWS = 4          # full windows a stream, then the tail
+FARM_TAIL = 40_960        # the sub-chunk tail that finish() walks on the host
+FARM_FEED = 262_144       # samples a feed
+PAUSE_STREAMS = 16        # phase 9b
+PAUSE_LEAD = (70_000, 130_000)   # 9b: a pause starts this far before its
+PAUSE_LEN = (200_000, 400_000)   # segment boundary and lasts this long
 
 
 def log(*a):
@@ -269,6 +293,60 @@ def check_kernels(dev, rate, chunk, n_chunks, errs):
         log(f"kernels == plain (bit-exact) at {rate} Hz, {STREAMS} streams x "
             f"{n_chunks} x {chunk}, select={select}")
     return x, outs_all
+
+
+def check_segmented_shapes(dev, errs):
+    """The fused kernels against their plain versions at the segmented
+    engine's launch shapes (cuda_channels.run_segmented_masks): B = 1, a
+    repair, from a carried state; and B = 48, 3 streams x 16 segments,
+    every 16th lane from a carried state and the others from the
+    speculative seed (zero but rows 0, 1 and 3: env = avg = the halo's
+    first sample, w1 = 10x it).  Two chunks with carried state, both at
+    base = the fold modulus, as the engine runs them; the mask, the deps
+    and the state bit-exact."""
+    import torch
+
+    from nfclab_torch.dsp import fused_frontend as ff
+    from torch_synth import mixed_lanes
+
+    pt, _, mp = _params(RATE)
+    plan = ff.kernel_plan(RATE)
+    base = plan.fold_modulus
+    c = CHECK_CHUNK
+    for b, S in ((1, 1), (48, 16)):
+        x = torch.from_numpy(mixed_lanes(b, 3 * c, seed=40 + b)).to(dev)
+        _, carried = ff.fused_frontend_plain(
+            x[:, :c], pt, mask_params=mp, return_state=True,
+            select=("detect_mask",), sample_rate=RATE)
+        st = torch.zeros(plan.nstate, b, device=dev)
+        heads = x[:, c]
+        st[0] = heads
+        st[1] = heads * 10.0
+        st[3] = heads
+        st[:, 0::S] = carried.t()[:, 0::S]
+        st_k, st_p = st, st.clone()
+        for k in (1, 2):
+            x_tm = x[:, k * c : (k + 1) * c].t().contiguous()
+            deps_k, _, so_k = ff.fused_scan(x_tm, st_k, base, pt, plan)
+            deps_p, _, so_p = ff._scan_plain(x_tm, st_p, base, pt, plan)
+            _hold(errs, "fused_scan", deps_k, deps_p,
+                  f"deps at B={b}, chunk {k}")
+            so_mk = so_p.clone()
+            mk_k = ff.fused_mask(deps_p, x_tm, st_p, so_mk, mp, plan)
+            mk_p = ff._mask_plain(deps_p, x_tm, st_p, so_p, mp, plan)
+            _hold(errs, "fused_mask", mk_k["detect_mask"],
+                  mk_p["detect_mask"], f"detect_mask at B={b}, chunk {k}")
+            _hold(errs, "fused_mask", so_mk, so_p, f"state at B={b}")
+            # both kernels in turn: the state after the pair
+            mk_kk = ff.fused_mask(deps_k, x_tm, st_k, so_k, mp, plan)
+            _hold(errs, "fused_scan", so_k, so_p, f"state at B={b}")
+            _hold(errs, "fused_mask", mk_kk["detect_mask"],
+                  mk_p["detect_mask"], f"chained mask at B={b}")
+            st_k, st_p = so_k, so_p
+        torch.cuda.synchronize()
+        what = "a repair" if b == 1 else "3 streams x 16 segments, seeded"
+        log(f"kernels == plain (bit-exact) at the segmented engine's shape "
+            f"B={b} ({what}) x 2 x {c}, base {base}")
 
 
 def check_oracle(x, outs_all, rate, lanes=8):
@@ -1316,6 +1394,273 @@ def run_conditioner_path(templates, out_dir):
     return res, launches
 
 
+def farm_lanes(templates, n_streams, seed0):
+    """(captures, repeats) for the farm: one stream per template in turn,
+    FARM_WINDOWS windows plus the tail each (torch_synth.lane)."""
+    from torch_synth import lane
+
+    n = FARM_WINDOWS * WINDOW + FARM_TAIL
+    out = [lane(templates[i % len(templates)], n, seed=seed0 + i)
+           for i in range(n_streams)]
+    return [x for x, _ in out], [r for _, r in out]
+
+
+def pause_lanes(templates, seed=90):
+    """PAUSE_STREAMS farm streams with a field-off stretch of 200k-400k
+    samples (noise about zero, as long_capture's) across one segment
+    boundary of every window after the first, so the speculative lanes
+    there cannot verify."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sigs, _ = farm_lanes(templates, PAUSE_STREAMS, seed)
+    seg = WINDOW // 16
+    for x in sigs:
+        for w in range(1, FARM_WINDOWS):
+            edge = w * WINDOW + int(rng.integers(1, 16)) * seg
+            lo = edge - int(rng.integers(*PAUSE_LEAD))
+            n = min(int(rng.integers(*PAUSE_LEN)), len(x) - lo)
+            x[lo : lo + n] = np.float32(2e-3) * rng.standard_normal(
+                n).astype(np.float32)
+    return sigs
+
+
+def host_stream_frames(sigs):
+    """Each stream through the host StreamingNfcDecoder (native
+    conditioner) in 65536-sample blocks, eight streams at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nfclab_torch.runtime.streaming import StreamingNfcDecoder
+
+    def one(x):
+        dec = StreamingNfcDecoder(RATE)
+        out = []
+        for off in range(0, len(x), 65536):
+            out.extend(dec.feed(x[off : off + 65536]))
+        out.extend(dec.finish())
+        return _frames_key(out)
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, sigs))
+
+
+def run_farm(sigs, **kw):
+    """CudaStreamFarm(fetch="mask", k_chunks=32, walk_threads=8) over the
+    streams, fed FARM_FEED samples at a time through one reused buffer:
+    (farm, per-stream frames, wall seconds, [(window width, scan
+    launches, mask launches)] per dispatch)."""
+    import numpy as np
+
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.runtime.farm import CudaStreamFarm
+
+    farm = CudaStreamFarm(len(sigs), RATE, fetch="mask", k_chunks=32,
+                          walk_threads=8, **kw)
+    windows = []
+    device_pass = farm._device_pass
+
+    def counted(batch, base0):
+        # dispatches run one at a time on the farm's IO thread
+        s0, m0 = ff.SCAN.launches, ff.MASK.launches
+        res = device_pass(batch, base0)
+        windows.append((batch.shape[1], ff.SCAN.launches - s0,
+                        ff.MASK.launches - m0))
+        return res
+
+    farm._device_pass = counted
+    frames = [[] for _ in sigs]
+    total = len(sigs[0])
+    buf = np.empty((len(sigs), FARM_FEED), np.float32)
+    t0 = time.perf_counter()
+    for off in range(0, total, FARM_FEED):
+        w = min(FARM_FEED, total - off)
+        for i, x in enumerate(sigs):
+            buf[i, :w] = x[off : off + w]
+        for i, new in enumerate(farm.feed(buf[:, :w])):
+            frames[i].extend(new)
+    for i, new in enumerate(farm.finish()):
+        frames[i].extend(new)
+    dt = time.perf_counter() - t0
+    return farm, frames, dt, windows
+
+
+def _farm_reading(farm, dt, windows, n_samples):
+    st = dict(farm.stats)
+    return {"streams": farm.n_streams, "segments": farm.segments,
+            "wall_s": dt, "samples_per_s": n_samples / dt,
+            **{k: st[k] for k in (
+                "device_s", "walk_s", "wait_s", "dispatches",
+                "seg_dispatches", "repaired_streams", "repair_chunks",
+                "seg_backoff_windows")},
+            "launches_per_window": [{"samples": w, "scan": a, "mask": b}
+                                    for w, a, b in windows]}
+
+
+def _missed(got, sent):
+    """Synthesized frames missing from `got` (decoded bytes), or None
+    when got is not an ordered subsequence of sent."""
+    j = 0
+    for d in got:
+        while j < len(sent) and sent[j] != d:
+            j += 1
+        if j == len(sent):
+            return None
+        j += 1
+    return len(sent) - len(got)
+
+
+def _hold_frames(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if _frames_key(g) != w or not g:
+            raise AssertionError(f"{what}: stream {i} frames != host "
+                                 "streaming decoder")
+
+
+def repair_steps(x, row):
+    """One repair as the segmented engine runs it (run_chained_masks on
+    one stream, a 16-segment window's segment of 2 chunks, from a carried
+    state at base = the fold modulus), by StepTimes step, the third of
+    three runs; and the scan kernel alone at that shape (CUDA events)."""
+    import torch
+
+    from nfclab_torch.dsp import cuda_channels as cc
+    from nfclab_torch.dsp import fused_frontend as ff
+
+    pt, _, mp = _params(RATE)
+    plan = ff.kernel_plan(RATE)
+    dev = torch.device("cuda", 0)
+    seg = x[None, : 2 * cc.CHAIN_CHUNK]
+    state = torch.from_numpy(row).to(dev)
+    for _ in range(3):
+        steps = cc.StepTimes()
+        lap = steps.start(dev)
+        t0 = time.perf_counter()
+        cc.run_chained_masks(seg, state, plan.fold_modulus, pt, mp,
+                             want_carry=True, lap=lap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = dict(steps, unattributed=wall - sum(steps.values()), wall=wall)
+    x_tm = torch.from_numpy(seg[0, : cc.CHAIN_CHUNK, None].copy()).to(dev)
+    st = state.t().contiguous()
+    res["scan_kernel_ms"] = _event_ms(
+        lambda: ff.fused_scan(x_tm, st, plan.fold_modulus, pt, plan), 3)
+    deps, _, so = ff.fused_scan(x_tm, st, plan.fold_modulus, pt, plan)
+    res["mask_kernel_ms"] = _event_ms(
+        lambda: ff.fused_mask(deps, x_tm, st, so, mp, plan), 3)
+    return res
+
+
+def run_farm_phase(templates):
+    """Phase 9: the live farm (CudaStreamFarm, the reference's deployment
+    mode) on the card.  9a: FARM_STREAMS streams in the default
+    configuration (segments=None: 16 segments, 1024 lanes); 9b:
+    pause-heavy traffic, without and with the adaptive backoff; 9c: 9a's
+    input through the serial chain (segments=1).  Frames are held against
+    the host streaming decoder (and against the synthesizer's bytes on
+    9a's streams); 9c's conditioning rows 0-4 after the last full window
+    against 9a's segmented carry, bit for bit.  Returns the readings, the
+    launch counts of each run among them."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.frame import FrameType
+    from nfclab_torch.dsp import fused_frontend as ff
+
+    keep = (int(FrameType.NfcPollFrame), int(FrameType.NfcListenFrame))
+    out = {}
+    t0 = time.perf_counter()
+    sigs, reps = farm_lanes(templates, FARM_STREAMS, 2000)
+    want = host_stream_frames(sigs)
+    n = FARM_STREAMS * len(sigs[0])
+    log(f"farm: {FARM_STREAMS} streams x {len(sigs[0])} samples built and "
+        f"host-decoded in {time.perf_counter() - t0:.1f} s")
+
+    def counted_run(name, sigs, **kw):
+        """run_farm with the kernels' counts set to 0 just before and read
+        just after; the peak device memory of the run."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ff.KERNELS:
+            k.launches = 0
+        farm, frames, dt, win = run_farm(sigs, **kw)
+        res = _farm_reading(farm, dt, win, len(sigs) * len(sigs[0]))
+        res["launches"] = {k.name: k.launches for k in ff.KERNELS}
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        for kname, c in res["launches"].items():
+            if c <= 0:
+                raise AssertionError(f"kernel {kname} never ran in farm "
+                                     f"{name}")
+        out[name] = res
+        return farm, frames
+
+    # 9a: the default configuration at the engine's full lane width
+    farm_a, got_a = counted_run("9a", sigs)
+    # the second window always runs the segmented engine; whether the
+    # later ones do is the adaptive backoff's reading of the repairs
+    if farm_a.segments != 16 or out["9a"]["seg_dispatches"] < 1:
+        raise AssertionError(f"farm 9a did not segment: {out['9a']}")
+    _hold_frames(got_a, want, "farm 9a")
+    # the synthesizer's bytes, in order and none invented; the host
+    # decoders (nfclab's too) miss a few BPSK frames on some of these
+    # noisy lanes, and the farm's frames equal theirs, so misses are
+    # counted, not failed, up to 1% of the frames sent
+    missed, sent = {}, 0
+    for i in range(FARM_STREAMS):
+        tp = templates[i % len(templates)]
+        m = _missed([f.data for f in got_a[i] if f.frame_type in keep],
+                    tp.sent * reps[i])
+        if m is None:
+            raise AssertionError(f"farm 9a stream {i}: frames the "
+                                 "synthesizer did not write")
+        sent += len(tp.sent) * reps[i]
+        if m:
+            missed[i] = m
+    if sum(missed.values()) > sent // 100:
+        raise AssertionError(f"farm 9a missed {missed} of {sent} frames")
+    out["9a"]["synth_frames"] = sent
+    out["9a"]["synth_missed_by_stream"] = missed
+    log(f"farm 9a == host streaming decoder; synthesized bytes in order, "
+        f"{sum(missed.values())} of {sent} frames missed (by stream: "
+        f"{missed}): {json.dumps(out['9a'])}")
+
+    # 9c: the same input through the serial chain
+    farm_c, got_c = counted_run("9c", sigs, segments=1)
+    if [_frames_key(f) for f in got_c] != [_frames_key(f) for f in got_a]:
+        raise AssertionError("farm 9c frames != 9a's")
+    rows_c = farm_c._state[:, :5].cpu().numpy()
+    rows_a = farm_a._carry["end"][:, :5]
+    if rows_c.shape != rows_a.shape or not np.array_equal(
+            rows_c.view(np.uint32), rows_a.view(np.uint32)):
+        raise AssertionError("farm 9c conditioning rows 0-4 != 9a's "
+                             "segmented carry")
+    log(f"farm 9c (segments=1) frames == 9a's, conditioning rows 0-4 == "
+        f"9a's carry (bit-exact, {FARM_STREAMS} streams): "
+        f"{json.dumps(out['9c'])}")
+    out["repair"] = repair_steps(sigs[0], farm_a._carry["end"][:1])
+    log(f"one repair of a 2-chunk segment, by step (s): "
+        f"{json.dumps(out['repair'])}")
+    del sigs, got_a, got_c, farm_a, farm_c
+
+    # 9b: pause-heavy traffic
+    sigs = pause_lanes(templates)
+    want = host_stream_frames(sigs)
+    _, got = counted_run("9b_fixed", sigs, adaptive_segments=False)
+    if out["9b_fixed"]["repaired_streams"] <= 0 or (
+            out["9b_fixed"]["repair_chunks"] <= 0):
+        raise AssertionError("farm 9b repaired nothing")
+    _hold_frames(got, want, "farm 9b (adaptive_segments=False)")
+    log(f"farm 9b (pauses, adaptive_segments=False) == host: "
+        f"{json.dumps(out['9b_fixed'])}")
+    _, got = counted_run("9b_adaptive", sigs, adaptive_segments=True)
+    if out["9b_adaptive"]["seg_backoff_windows"] < 1:
+        raise AssertionError("farm 9b never backed off")
+    _hold_frames(got, want, "farm 9b (adaptive_segments=True)")
+    log(f"farm 9b (pauses, adaptive_segments=True) == host: "
+        f"{json.dumps(out['9b_adaptive'])}")
+    return out
+
+
 def check_v2(dev, streams, chunk, errs, seed, timed=False):
     """fused_v2's kernels against their plain versions over two chunks of
     mixed lanes with carried state (clocks from 40): the two-kernel chain
@@ -1664,6 +2009,7 @@ def main(argv=None) -> int:
         check_boundary(dev, rate, errs)
     check_boundary_experiments(dev, errs)
     check_ff_mask_boundary(dev, errs)
+    check_segmented_shapes(dev, errs)
     check_experiment_kernels(dev, errs)
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
@@ -1716,8 +2062,16 @@ def main(argv=None) -> int:
     ekt, elaunch = run_experiments(dev, errs, tpls)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
-    per_step = {"fused_scan": {"ns_per_step": tk["scan_ns_per_step"]},
+    # 9. the live farm on the card at full width
+    t0 = time.perf_counter()
+    farm = run_farm_phase(tpls)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    per_step = {"fused_scan": {
+                    "ns_per_step": tk["scan_ns_per_step"],
+                    "repair_ms": farm["repair"]["scan_kernel_ms"]},
                 "fused_mask": {
+                    "repair_ms": farm["repair"]["mask_kernel_ms"],
                     "two_kernel_floor_ms": tk["two_kernel_floor_ms"],
                     "md_ms": tk["mask_md_ms"],
                     "md_plain_ms": tk["mask_md_plain_ms"],
@@ -1762,6 +2116,13 @@ def main(argv=None) -> int:
                                        "serial_ms_at_this_shape") if key in k},
             **per_step.get(name, {}),
         })
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
+    if loaded:
+        raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"farm_launches": {
+        run: {"total": r["launches"], "per_window": r["launches_per_window"]}
+        for run, r in farm.items() if run != "repair"}}))
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

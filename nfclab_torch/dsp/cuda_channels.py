@@ -8,6 +8,8 @@ to (indices, bits, count), and ``preload_channels`` stuffs the triggers
 into a decode context's ``LazyChannels`` cache, so the tech FSMs take their
 detect-trigger indices from the device instead of recomputing them on the
 host.  Conditioning and box channels still build natively on the host.
+``run_segmented_masks`` splits each stream's window over several kernel
+lanes (the live farm's engine, runtime/farm.py).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the kernels' plain versions); with no card and no ``device="cpu"`` they
@@ -237,29 +239,33 @@ def _run_chunks(x: torch.Tensor, st: torch.Tensor, base0: int, pt, mp,
                 plan, chunk: int):
     """The kernels over a [n_live, T] device block, chunk by chunk with
     carried [nstate, B] state (streams past n_live are fed zeros).
-    Returns the [n_live, T] u8 detect mask and the new state."""
+    Returns the [n_live, T] u8 detect mask, the new state and the state
+    before the last chunk."""
     from .fused_frontend import run_chunk
 
     n_live, T = x.shape
     xc = torch.zeros(chunk, st.shape[1], dtype=torch.float32,
                      device=x.device)
     mm = torch.empty(n_live, T, dtype=torch.uint8, device=x.device)
+    pen = st
     for lo in range(0, T, chunk):
         xc[:, :n_live] = x[:, lo : lo + chunk].t()
+        pen = st
         outs, st = run_chunk(xc, st, base0 + lo, pt, mp, plan,
                              ("detect_mask",))
         mm[:, lo : lo + chunk] = outs["detect_mask"][:, :n_live].t()
-    return mm, st
+    return mm, st, pen
 
 
 def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int, lap=_no_lap):
     """Per-row (rel_idx i64, bits u8) on the host.  The count vector comes
     first (it also waits for the window), then only what each row needs:
-    the compacted prefix for sparse rows, the dense mask row for rows that
-    overflow the cap."""
+    the compacted prefix for sparse rows, and the dense mask rows of the
+    rows that overflow the cap, gathered on the device and moved in one
+    transfer."""
     n_live = mm.shape[0]
     cnt_h = cnt.cpu().numpy()
-    over = [i for i in range(n_live) if int(cnt_h[i]) > cap]
+    over = np.flatnonzero(cnt_h > cap)
     idx_h = bits_h = None
     if len(over) < n_live:
         width = int(min(cap, cnt_h.max()))
@@ -267,10 +273,11 @@ def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int, lap=_no_lap):
         bits_h = bits[:, :width].cpu().numpy()
     lap("fetch")
     dense = {}
-    for i in over:
-        row = mm[i].cpu().numpy()
-        rel = np.flatnonzero(row).astype(np.int64)
-        dense[i] = (rel, row[rel])
+    if len(over):
+        rows = mm[torch.from_numpy(over).to(mm.device)].cpu().numpy()
+        for i, row in zip(over.tolist(), rows):
+            rel = np.flatnonzero(row).astype(np.int64)
+            dense[i] = (rel, row[rel])
     lap("overflow_rows")
     out = []
     for i in range(n_live):
@@ -283,19 +290,42 @@ def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int, lap=_no_lap):
     return out
 
 
+def _state_rows(st: torch.Tensor, n: int | None = None) -> np.ndarray:
+    """Host [n, nstate] rows (a copy) of the first n lanes (all by
+    default) of a section-major [nstate, B] state."""
+    return np.array(st[:, :n].t().cpu().numpy())
+
+
+def _expand_state(rows: np.ndarray, device) -> torch.Tensor:
+    """[n, nstate] host state rows -> the [n, nstate] kernel state on
+    `device` (stream i at row i)."""
+    return torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(
+        device
+    )
+
+
 def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
-                      pt, mp, cap_div: int = 16, chunk: int = CHAIN_CHUNK,
-                      sample_rate: int = 10_000_000, lap=_no_lap):
+                      pt, mp, cap_div: int = 16, chunk: int | None = None,
+                      sample_rate: int = 10_000_000, lap=_no_lap,
+                      want_carry: bool = False):
     """One chained-K window + compacted fetch.
 
-    blocks: [n_live, T] f32 host samples, T % chunk == 0, for the first
-    n_live streams of `state` ([B, nstate] on the device to run on; the
-    other streams are fed zeros).  Returns (per-stream list of
-    (rel_idx i64, bits u8), state_out).  Streams whose trigger count
-    overflows the compaction cap take their dense mask row instead.
-    `lap` ends each step (see StepTimes)."""
+    blocks: [n_live, T] f32 host samples, T % chunk == 0 (chunk defaults
+    to the module's CHAIN_CHUNK, read at call time), for the first n_live
+    streams of `state` ([B, nstate] on the device to run on; the other
+    streams are fed zeros).  Returns (per-stream list of (rel_idx i64,
+    bits u8), state_out).  Streams whose trigger count overflows the
+    compaction cap take their dense mask row instead.  `lap` ends each
+    step (see StepTimes).
+
+    want_carry=True additionally returns {"pen", "end"}: host
+    [n_live, nstate] state rows one chunk before the window's end and at
+    its end -- the segmented engine's carry handoff
+    (run_segmented_masks)."""
     from .fused_frontend import kernel_plan
 
+    if chunk is None:
+        chunk = CHAIN_CHUNK
     n_live, T = blocks.shape
     if T % chunk:
         raise ValueError(f"window {T} is not a multiple of chunk {chunk}")
@@ -307,13 +337,250 @@ def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
     plan = kernel_plan(sample_rate)
     x = upload_samples(blocks, dev)
     lap("upload")
-    mm, st = _run_chunks(x, state.t().contiguous(), base0, pt, mp, plan,
-                         chunk)
+    mm, st, pen = _run_chunks(x, state.t().contiguous(), base0, pt, mp,
+                              plan, chunk)
     del x
     lap("chunks")
     idx, bits, cnt = _compact(mm, cap)
     lap("compact")
-    return _fetch(mm, idx, bits, cnt, cap, lap), st.t().contiguous()
+    per = _fetch(mm, idx, bits, cnt, cap, lap)
+    if want_carry:
+        carry = {"pen": _state_rows(pen, n=n_live),
+                 "end": _state_rows(st, n=n_live)}
+        return per, st.t().contiguous(), carry
+    return per, st.t().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Segmented speculative-lane engine: the chained engine's device stage is
+# serial in the window length (K chunks through one lane per stream), so a
+# farm of few streams uses a handful of lanes and the window's device time
+# is the FULL window's serial step count.  This engine splits each
+# stream's window into S segments that ride S parallel lanes -- device
+# time drops to (K/S + 1) chunks -- using the host conditioner's halo +
+# verify + repair scheme on the kernels' carried state:
+#
+# - lane (i, 0) continues stream i's EXACT chain: its incoming state is the
+#   previous window's state at (end - chunk) and its halo chunk REPLAYS the
+#   previous window's last chunk (same samples, congruent ring phases), so
+#   its post-halo state is bit-identical to the previous end state;
+# - lanes (i, s>0) are SPECULATIVE: canonical warm-up seed (env/avg = first
+#   halo sample, w1 = 10x -- the conditioner's init) over a one-chunk halo
+#   of the real preceding samples;
+# - verify: a segment is accepted iff its post-halo conditioning carry
+#   (env, w1, mdev, avg, pulse -- the rows that determine every downstream
+#   value) equals its predecessor's end carry BIT-EXACTLY.  Ring buffers,
+#   histories and their phases are exact by construction after the halo
+#   (every extent <= 601 samples << the 65536-sample halo, and all segment
+#   offsets are congruent mod the fold modulus); the running box sums carry
+#   a fresh f32 accumulation of the same windows -- the SAME roundoff family
+#   as the production chain vs the host f64 walk, covered by
+#   MASK_ONLY_MARGIN (the wrong early-halo contributions are ring-stored
+#   and subtracted back out bit-identically when they leave the window);
+# - repair: the first unverified segment onward re-runs through the EXACT
+#   chained engine (pow2 chunk buckets) from the accepted predecessor's
+#   full end state -- worst case one serial window, i.e. the
+#   pre-segmentation behavior.
+#
+# The mask soundness structure is unchanged: the power gate reads an
+# envelope that is bit-exactly the true streaming envelope on every
+# accepted segment, and SD triggers keep MASK_ONLY_MARGIN.
+#
+# Lane (i, s) is row i*S + s of the kernels' [nstate, n_lanes] state; the
+# kernels take any lane count, so no lane padding is needed.
+
+_NVER = 5  # verified carry rows: env, w1, mdev, avg, pulse-count
+
+
+def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
+                     carry_in: torch.Tensor, pt, mp, plan, S: int, B: int,
+                     chunk: int, base: int, cap: int) -> dict:
+    """The device stage of run_segmented_masks: x [n_live, S*B*chunk],
+    tail [n_live, chunk] and carry_in [n_live, nstate] on the device ->
+    {"mm": [n_lanes, B*chunk] u8, "idx"/"bits"/"cnt" (its compaction),
+    "vh"/"ve": [n_lanes, _NVER] carry rows after the halo / at the end,
+    "pen"/"end": [nstate, n_live] states of the streams' last lanes one
+    chunk before the end / at the end, "st": the [nstate, n_lanes] end
+    state}.
+
+    Lane (i, s) = row i*S + s covers body samples [s*B*chunk,
+    (s+1)*B*chunk) of stream i after one halo chunk; `base` is the rate's
+    fold modulus (all segment offsets are multiples of it, so one base
+    serves every lane and chunk with identical ring phases)."""
+    from .fused_frontend import run_chunk
+
+    n_live = x.shape[0]
+    n_lanes = n_live * S
+    dev = x.device
+    x4 = x.view(n_live, S, B, chunk)
+    # halo chunk per lane: the previous window's tail for s=0, the
+    # preceding segment's last chunk for s>0 (device-side slices -- the
+    # halo costs no extra upload)
+    prev = torch.cat([tail[:, None, :], x4[:, : S - 1, B - 1, :]], dim=1)
+
+    # initial state: speculative lanes get the conditioner's canonical
+    # warm-up seed from their halo's first sample; lanes (i, 0) get the
+    # carried end-minus-one-chunk state (full nstate rows)
+    heads = prev[:, :, 0].reshape(n_lanes)
+    st = torch.zeros(plan.nstate, n_lanes, dtype=torch.float32, device=dev)
+    st[0] = heads                                  # env
+    st[1] = heads * 10.0                           # w1 steady state
+    st[3] = heads                                  # avg
+    st[:, 0::S] = carry_in.t()
+
+    xc = torch.empty(chunk, n_lanes, dtype=torch.float32, device=dev)
+    mm = torch.empty(n_lanes, B * chunk, dtype=torch.uint8, device=dev)
+    vh = pen = None
+    for k in range(B + 1):
+        src = prev if k == 0 else x4[:, :, k - 1, :]
+        xc.view(chunk, n_live, S).copy_(src.permute(2, 0, 1))
+        if k == B:
+            pen = st  # state at window end minus one chunk
+        outs, st = run_chunk(xc, st, base, pt, mp, plan, ("detect_mask",))
+        if k == 0:
+            vh = st[:_NVER].t().contiguous()
+        else:
+            mm[:, (k - 1) * chunk : k * chunk] = outs["detect_mask"].t()
+    idx, bits, cnt = _compact(mm, cap)
+    return {"mm": mm, "idx": idx, "bits": bits, "cnt": cnt, "vh": vh,
+            "ve": st[:_NVER].t().contiguous(), "pen": pen[:, S - 1 :: S],
+            "end": st[:, S - 1 :: S], "st": st}
+
+
+def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
+                        segments: int, cap_div: int = 16,
+                        chunk: int | None = None,
+                        sample_rate: int = 10_000_000,
+                        k_bucket: int = 32, device="cuda"):
+    """Segment-parallel chained masks over one window (see the scheme note
+    above).  blocks: [n_live, T] host samples, T = K*chunk, segments | K
+    (chunk defaults to the module's CHAIN_CHUNK, read at call time);
+    carry: {"pen": [n_live, nstate] state at prev end - chunk,
+    "end": same at prev end, "tail": [n_live, chunk] prev last chunk}, on
+    the host.  Runs on `device` (``cpu``: the kernels' plain versions).
+    Returns (per-stream (rel i64, bits u8) window-relative, new carry,
+    {"repaired_streams", "repair_chunks"})."""
+    from .fused_frontend import kernel_plan
+
+    if chunk is None:
+        chunk = CHAIN_CHUNK
+    dev = resolve_device(device)
+    n_live, T = blocks.shape
+    S = segments
+    assert T % chunk == 0
+    K = T // chunk
+    assert S >= 2 and K % S == 0
+    B = K // S
+    plan = kernel_plan(sample_rate)
+    base = plan.fold_modulus
+    cap = max(4096, (B * chunk) // cap_div)
+    x = upload_samples(blocks, dev)
+    tail = upload_samples(np.ascontiguousarray(carry["tail"]), dev)
+    d = _segmented_masks(x, tail, _expand_state(carry["pen"], dev), pt, mp,
+                         plan, S, B, chunk, base, cap)
+    del x, tail
+    vh, ve = d["vh"].cpu().numpy(), d["ve"].cpu().numpy()
+
+    # verify EVERY pairwise boundary (NaN compares unequal, which
+    # correctly forces a repair): ok[i][s] means lane (i, s)'s post-halo
+    # carry equals lane (i, s-1)'s end carry, i.e. segment s is exact
+    # WHENEVER its predecessor is
+    boundary_ok = np.ones((n_live, S), bool)
+    for i in range(n_live):
+        for s in range(1, S):
+            l = i * S + s
+            boundary_ok[i, s] = np.array_equal(vh[l], ve[l - 1])
+    first_bad: dict[int, int] = {
+        i: int(np.argmin(boundary_ok[i]))
+        for i in range(n_live)
+        if not boundary_ok[i].all()
+    }
+
+    # every lane's triggers (lanes inside a repair range get overwritten,
+    # but fetching them is cheaper than a second round trip when the
+    # repair early-stops and re-accepts them)
+    per_lane = _fetch(d["mm"], d["idx"], d["bits"], d["cnt"], cap)
+
+    # repair with convergence stop (the conditioner's scheme): re-run the
+    # first unverified segment exactly from the accepted predecessor's
+    # full end state, then compare the repaired end carry against the
+    # NEXT speculative lane's post-halo carry -- a match means that lane
+    # (and everything after it, already verified pairwise) is exact, so
+    # the remaining speculative results are accepted as-is.  Divergence
+    # that persists escalates the repair span by powers of two, so a
+    # pause spanning many segments costs O(log S) windows, while the
+    # common localized case (a frame near one boundary) costs one.
+    rep_seg: dict[tuple, tuple] = {}   # (i, s) -> (rel within seg, bits)
+    rep_carry: dict[int, tuple] = {}
+    repair_chunks = 0
+    max_take = max(1, k_bucket // B)
+    for i in first_bad:
+        bad = np.flatnonzero(~boundary_ok[i])
+        j = 0
+        while j < len(bad):
+            s = int(bad[j])
+            # the predecessor lane is exact here: either it verified
+            # pairwise back to an exact ancestor, or an earlier repair
+            # rejoined the speculative chain before it
+            l = i * S + s - 1
+            state_dev = d["st"][:, l : l + 1].t().contiguous()
+            step = 1
+            rejoined = None
+            while s < S:
+                take = min(step, S - s, max_take)
+                while take & (take - 1):  # pow2 chunk buckets only
+                    take -= take & -take
+                lo_c = s * B
+                kk = take * B
+                seg = blocks[i : i + 1, lo_c * chunk : (lo_c + kk) * chunk]
+                per, state_dev, c2 = run_chained_masks(
+                    seg, state_dev, base, pt, mp, cap_div=cap_div,
+                    chunk=chunk, sample_rate=sample_rate, want_carry=True,
+                )
+                rel, bb = per[0]
+                for ss in range(s, s + take):
+                    in_seg = (rel >= (ss - s) * B * chunk) & (
+                        rel < (ss - s + 1) * B * chunk
+                    )
+                    rep_seg[(i, ss)] = (
+                        rel[in_seg] - (ss - s) * B * chunk, bb[in_seg]
+                    )
+                repair_chunks += kk
+                s += take
+                if s >= S:
+                    rep_carry[i] = (c2["pen"][0], c2["end"][0])
+                    break
+                if np.array_equal(c2["end"][0][:_NVER], vh[i * S + s]):
+                    rejoined = s  # speculative chain is exact again
+                    break
+                step *= 2
+            if rejoined is None:
+                break  # repaired through the window end
+            while j < len(bad) and bad[j] <= rejoined:
+                j += 1
+
+    new_pen = _state_rows(d["pen"])
+    new_end = _state_rows(d["end"])
+    out = []
+    for i in range(n_live):
+        parts_r, parts_b = [], []
+        for s in range(S):
+            if (i, s) in rep_seg:
+                rel, bb = rep_seg[(i, s)]
+            else:
+                rel, bb = per_lane[i * S + s]
+            parts_r.append(rel + s * B * chunk)
+            parts_b.append(bb)
+        if i in rep_carry:
+            new_pen[i], new_end[i] = rep_carry[i]
+        out.append((np.concatenate(parts_r), np.concatenate(parts_b)))
+    new_carry = {
+        "pen": new_pen, "end": new_end,
+        "tail": np.ascontiguousarray(blocks[:, -chunk:]),
+    }
+    stats = {"repaired_streams": len(first_bad),
+             "repair_chunks": repair_chunks}
+    return out, new_carry, stats
 
 
 def chained_batch_masks(

@@ -1,8 +1,8 @@
 """The host layer of nfclab_torch is a copy of nfclab's: each copied module
 must equal its nfclab original except in import lines (and the one listed
-edit of native/build.py), each copied function in a ported module likewise,
-and the native C++ sources byte for byte.  A fix made on one side only
-fails here."""
+edit of native/build.py), each copied function or class in a ported module
+likewise, and the native C++ sources byte for byte.  A fix made on one
+side only fails here."""
 
 import ast
 import difflib
@@ -22,13 +22,20 @@ COPIED = [
     "demod/nfcb.py", "demod/nfcf.py", "demod/nfcv.py",
     "dsp/__init__.py", "dsp/channels.py", "dsp/debugtap.py",
     "runtime/__init__.py", "runtime/native_walk.py", "runtime/decoder.py",
+    "runtime/streaming.py",
 ]
 
-# functions copied into modules that are ported, not copied, as a whole
+# functions and classes copied into modules that are ported, not copied,
+# as a whole
 COPIED_FUNCTIONS = [
     ("dsp/conditioner.py", "_edge_tracker"),
     ("dsp/frontend.py", "_params_tuple"),
     ("dsp/frontend.py", "_default_corr_thresholds"),
+    ("runtime/farm.py", "_init_idx_entries"),
+    ("runtime/farm.py", "_append_mask_idx"),
+    ("runtime/farm.py", "_append_sparse_idx"),
+    ("runtime/farm.py", "_DispatchPipeline"),
+    ("runtime/farm.py", "MaskFedStream"),
 ]
 
 # the port's native build is atomic: nfclab's writes the library in place,
@@ -122,9 +129,10 @@ def test_copied_module_matches_nfclab(rel):
 def _function_source(path: Path, name: str) -> str:
     src = path.read_text()
     for node in ast.parse(src).body:
-        if isinstance(node, ast.FunctionDef) and node.name == name:
+        if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                and node.name == name):
             return ast.get_source_segment(src, node)
-    raise AssertionError(f"{path}: no function {name}")
+    raise AssertionError(f"{path}: no function or class {name}")
 
 
 @pytest.mark.parametrize("rel,name", COPIED_FUNCTIONS,

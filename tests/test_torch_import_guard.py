@@ -58,6 +58,8 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.dsp.frontend",
                  "nfclab_torch.kernels.conditioner",
                  "nfclab_torch.runtime.batch",
+                 "nfclab_torch.runtime.streaming",
+                 "nfclab_torch.runtime.farm",
                  "nfclab_torch.apps.bench_cli",
                  "nfclab_torch.kernels.probes",
                  "nfclab_torch.kernels.fused_v2",
