@@ -88,10 +88,32 @@ Phases (any failure raises and the script exits non-zero):
    conditioning rows 0-4 after the last window equal (a)'s segmented
    carry bit for bit.  Wall time, samples/s, the farm's stats, launches
    per window (each run's counts set to 0 just before it) and peak memory.
+10. The full-channel device frontend (every output of both fused kernels
+   fetched densely): (a) fused_batch_all over 1024 captures x 131,072
+   samples (the first two chunks of phase 4's lanes, so carried state
+   crosses one chunk boundary): wall time, samples/s, its StepTimes split
+   with the host edge tracker's seconds, peak memory and the launches read
+   around exactly that call (2 + 2); the eight Conditioned arrays of 8
+   lanes bit for bit against the C++ oracle, and lanes 0-1's nine box
+   channels and mask against the card's chained fused_frontend over the
+   same two chunks; (b) one capture of each template through
+   fused_capture_all, and through fused_capture_channels with native
+   conditioning: frames equal the host frontend's and the synthesizer's
+   bytes; (c) decode_batch(frontend="fused") with native and with device
+   conditioning, decode_cli run --frontend fused and bench_cli --frontend
+   fused --conditioner device on the template WAVs give the native
+   frames; (d) CudaStreamFarm(fetch="full") on 9a's 64 streams and feeds:
+   its final state equals a chained fused_frontend's bit for bit; its
+   frames equal the host streaming decoder's frames of phase 9, up to
+   sample bounds that move by less than a symbol where the kernels'
+   float32 box sums have drifted from the host's float64 ones, and carry the
+   synthesizer's bytes; wall time, samples/s, device_s, walk_s, launches
+   per feed and peak memory.
 At the end neither JAX nor nfclab may have been imported.  The line
 before the last is the card's name and power limit; the one before it a
-JSON object with one entry per kernel, and the one before that the
-farm's launch counts.  The last line is {"ok": true, "device": {...}}.
+JSON object with one entry per kernel, the one before that the farm's
+launch counts, and the one before that the full-channel path's launch
+counts.  The last line is {"ok": true, "device": {...}}.
 --kernels-only stops after phase 2, for a first call after a kernel
 change.
 """
@@ -1020,6 +1042,11 @@ def check_main_shape(dev, caps, errs):
                                          (mask_ops + 4) * n)[0]
     t["chunk_mask_bound"] = _bound(5 * n + 2 * state_b,
                                    (scan_ops + mask_ops) * n)
+    # the pair with every output selected (the full-channel path): 4 B a
+    # sample in, 14 f32 outputs and the mask out (57 B), the state in and
+    # out; mod_depth's 4 operations beside the scan's and the mask's
+    t["chunk_all_bound"] = _bound(61 * n + 2 * state_b,
+                                  (scan_ops + mask_ops + 4) * n)
     return t
 
 
@@ -1559,7 +1586,8 @@ def run_farm_phase(templates):
     the host streaming decoder (and against the synthesizer's bytes on
     9a's streams); 9c's conditioning rows 0-4 after the last full window
     against 9a's segmented carry, bit for bit.  Returns the readings, the
-    launch counts of each run among them."""
+    launch counts of each run among them, and 9a's streams with their
+    repeats and host frames (phase 10d's input and reference)."""
     import numpy as np
     import torch
 
@@ -1640,7 +1668,8 @@ def run_farm_phase(templates):
     out["repair"] = repair_steps(sigs[0], farm_a._carry["end"][:1])
     log(f"one repair of a 2-chunk segment, by step (s): "
         f"{json.dumps(out['repair'])}")
-    del sigs, got_a, got_c, farm_a, farm_c
+    stream_in = (sigs, reps, want)
+    del got_a, got_c, farm_a, farm_c
 
     # 9b: pause-heavy traffic
     sigs = pause_lanes(templates)
@@ -1658,6 +1687,326 @@ def run_farm_phase(templates):
     _hold_frames(got, want, "farm 9b (adaptive_segments=True)")
     log(f"farm 9b (pauses, adaptive_segments=True) == host: "
         f"{json.dumps(out['9b_adaptive'])}")
+    return out, stream_in
+
+
+FULL_CHUNKS = 2           # phase 10a: chunks of 65536 a capture
+ORACLE_LANES = 8          # 10a: lanes held to the C++ oracle
+KERNEL_LANES = 2          # 10a: lanes held to the chained fused_frontend
+FULL_DECODE_LEN = 4 * 65536   # 10b: samples of a template capture
+
+
+def run_full_path(caps2):
+    """Phase 10a: fused_batch_all over the captures (STREAMS x FULL_CHUNKS
+    chunks), with its step times, the launches read around exactly that
+    call and its peak memory; then ORACLE_LANES lanes' eight Conditioned
+    arrays against the C++ oracle and KERNEL_LANES lanes' channels and
+    mask against the card's chained fused_frontend, bit for bit."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import cuda_channels as cc
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.native import condition_exact
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = cc.StepTimes()
+    for k in ff.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = cc.fused_batch_all(caps2, RATE, device="cuda", timings=steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ff.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"fused_scan": FULL_CHUNKS, "fused_mask": FULL_CHUNKS}:
+        raise AssertionError(f"full path launches {launches}, not "
+                             f"{FULL_CHUNKS} + {FULL_CHUNKS}")
+    n = len(caps2) * len(caps2[0])
+    out = {"captures": len(caps2), "samples": len(caps2[0]),
+           "wall_s": dt, "samples_per_s": n / dt,
+           "steps_s": dict(steps, unattributed=dt - sum(steps.values())),
+           "edge_tracker_s": steps["edge_tracker"],
+           "max_memory_allocated": peak, "launches": launches}
+    log(f"full path: fused_batch_all {len(caps2)} x {len(caps2[0])}: "
+        f"{json.dumps(out)}")
+
+    params = SignalParams(RATE)
+    attrs = ("value", "envelope", "filtered", "deviation", "average",
+             "mod_depth", "edge_peak", "edge_time")
+    for i in range(ORACLE_LANES):
+        ref = condition_exact(caps2[i], params)
+        cond = res[i][0]
+        for a in attrs:
+            g, w = getattr(cond, a), getattr(ref, a)
+            if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                    g.view(np.uint32), w.view(np.uint32)):
+                raise AssertionError(f"fused_batch_all {a} lane {i} != C++ "
+                                     "oracle")
+    log(f"fused_batch_all conditioning == C++ oracle (bit-exact, 8 arrays) "
+        f"on {ORACLE_LANES} lanes")
+
+    pt, mp_all, _ = _params(RATE)
+    chunk = cc.CHAIN_CHUNK
+    x = torch.from_numpy(np.stack(caps2[:KERNEL_LANES])).to("cuda")
+    st, parts = None, []
+    for c in range(FULL_CHUNKS):
+        got, st = ff.fused_frontend(x[:, c * chunk : (c + 1) * chunk], pt,
+                                    mask_params=mp_all, state=st,
+                                    base=c * chunk, return_state=True)
+        parts.append({k: v.cpu().numpy() for k, v in got.items()})
+    for i in range(KERNEL_LANES):
+        chans = res[i][1]
+        for name in cc.fetch_names(RATE):
+            want = np.concatenate([p[name][i] for p in parts])
+            if not np.array_equal(chans[name].view(np.uint8),
+                                  want.view(np.uint8)):
+                raise AssertionError(f"fused_batch_all {name} lane {i} != "
+                                     "the chained fused_frontend")
+    log(f"fused_batch_all channels and mask == chained fused_frontend "
+        f"(bit-exact) on lanes 0-{KERNEL_LANES - 1}")
+    return out
+
+
+def check_full_decode(templates):
+    """Phase 10b: one capture of each template (torch_synth.lane,
+    FULL_DECODE_LEN samples) through fused_capture_all, and through
+    fused_capture_channels with native conditioning; frames equal the
+    host frontend's and the synthesizer's bytes."""
+    from nfclab_torch.core.frame import FrameType
+    from nfclab_torch.dsp import cuda_channels as cc
+    from nfclab_torch.runtime.decoder import NfcDecoder
+    from torch_synth import lane
+
+    keep = (int(FrameType.NfcPollFrame), int(FrameType.NfcListenFrame))
+    for i, tp in enumerate(templates):
+        x, reps = lane(tp, FULL_DECODE_LEN, seed=3000 + i)
+        host = _frames_key(NfcDecoder().decode(x, RATE))
+        cond, chans = cc.fused_capture_all(x, RATE)
+        full = NfcDecoder().decode(x, RATE, cond=cond, tpu_channels=chans)
+        boxes = NfcDecoder().decode(
+            x, RATE, tpu_channels=cc.fused_capture_channels(x, RATE))
+        for what, frames in (("fused_capture_all", full),
+                             ("fused_capture_channels", boxes)):
+            if _frames_key(frames) != host:
+                raise AssertionError(f"{tp.name}: {what} frames != host")
+            if [f.data for f in frames if f.frame_type in keep] != (
+                    tp.sent * reps):
+                raise AssertionError(f"{tp.name}: {what} frames != "
+                                     "synthesized bytes")
+        log(f"decode {tp.name} ({len(x)} samples): fused_capture_all and "
+            f"fused_capture_channels == host == synth bytes "
+            f"({len(full)} frames)")
+
+
+def check_full_surfaces(templates, out_dir):
+    """Phase 10c: decode_batch(frontend="fused") with native and device
+    conditioning, the CLI's run --frontend fused and bench_cli --frontend
+    fused --conditioner device, on the template WAVs of phase 7, against
+    the native frames."""
+    from nfclab_torch.runtime.batch import decode_batch
+
+    paths = [str(out_dir / f"{tp.name}.wav") for tp in templates]
+    want = decode_batch(paths, conditioner="native", pool="thread")
+    for kw in ({"frontend": "fused"},
+               {"frontend": "fused", "conditioner": "device"}):
+        got = decode_batch(paths, pool="thread", **kw)
+        for p in paths:
+            if _frames_key(got[p]) != _frames_key(want[p]) or not got[p]:
+                raise AssertionError(f"decode_batch({kw}) {p} != native")
+        log(f"decode_batch({kw}) == native on {len(paths)} template WAVs")
+    proc = subprocess.run(
+        [sys.executable, "-m", "nfclab_torch.apps.decode_cli", "run",
+         "--json", "--frontend", "fused", paths[0]],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI --frontend fused failed:\n{proc.stderr}")
+    lines = proc.stdout.splitlines()
+    if not lines or lines != _frames_key(want[paths[0]]):
+        raise AssertionError("CLI --frontend fused lines != native")
+    log(f"CLI run --frontend fused == native ({len(lines)} lines)")
+    proc = subprocess.run(
+        [sys.executable, "-m", "nfclab_torch.apps.bench_cli", "--no-kernel",
+         "--decode", *paths, "--frontend", "fused", "--conditioner",
+         "device", "--pool", "thread"],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_cli --frontend fused failed:\n"
+                             f"{proc.stderr}")
+    rec = json.loads(proc.stdout.splitlines()[-1])
+    if rec["frames"] != sum(len(v) for v in want.values()):
+        raise AssertionError(f"bench_cli --frontend fused: {rec}")
+    log(f"bench_cli --frontend fused --conditioner device: {json.dumps(rec)}")
+    return rec
+
+
+TIMING_KEYS = ("timestamp", "time_start", "time_end", "sample_start",
+               "sample_end", "date_time")
+
+
+def _timing_shift(got, want):
+    """(largest shift in samples, largest in symbol periods of the frame's
+    rate) of the sample bounds of frames (JSON lines) that agree in every
+    other key; None when the counts differ or a frame differs beyond its
+    timing.  A frame without a rate (carrier events) counts in samples."""
+    if len(got) != len(want):
+        return None
+    samples = symbols = 0.0
+    for g, w in zip(got, want):
+        g, w = json.loads(g), json.loads(w)
+        if ({k: v for k, v in g.items() if k not in TIMING_KEYS}
+                != {k: v for k, v in w.items() if k not in TIMING_KEYS}):
+            return None
+        period = RATE / g["rate"] if g.get("rate") else 1.0
+        for k in ("sample_start", "sample_end"):
+            samples = max(samples, abs(g[k] - w[k]))
+            symbols = max(symbols, abs(g[k] - w[k]) / period)
+    return samples, symbols
+
+
+def box_drift(x):
+    """max |kernel - host| of each box channel of one stream, over its
+    first and its last 2**20 samples: the kernels' float32 running sums
+    (fused_capture_all on the card) against the host's float64 boxes
+    (LazyChannels on the C++ oracle's conditioning)."""
+    import numpy as np
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import cuda_channels as cc
+    from nfclab_torch.native import condition_exact
+    from nfclab_torch.runtime.decoder import DecoderContext
+
+    _, chans = cc.fused_capture_all(x, RATE)
+    params = SignalParams(RATE)
+    ch = DecoderContext(condition_exact(x, params), RATE, params).channels
+    out = {}
+    for name, (_, kind, w, lag) in cc.box_keys(RATE).items():
+        host = (ch.box_value(w) if kind == 0 else ch.box_sq(w) if kind == 1
+                else ch.box_bpsk(lag, w))
+        d = np.abs(chans[name].astype(np.float64) - host)
+        out[name] = [float(d[: 1 << 20].max()), float(d[-(1 << 20):].max())]
+    return out
+
+
+def run_full_farm(sigs, want, reps, templates):
+    """Phase 10d: CudaStreamFarm(fetch="full") over 9a's streams, fed
+    FARM_FEED samples at a time through one reused buffer, with the
+    kernels' counts set to 0 just before and read just after (and per
+    feed).  Its carried state after the last feed equals, bit for bit, a
+    chained fused_frontend over the same streams at unfolded clocks.
+    Frames against the host streaming decoder's (phase 9's): the walk
+    reads the kernels' float32 running box sums, which drift from the
+    host's float64 boxes over millions of samples (ROADMAP Queue 3), so a
+    stream may differ in frame timing only: the same frames, equal in
+    every key but their sample bounds, which move by less than one symbol
+    period of the frame's rate (a whole symbol would be another symbol
+    alignment, and other bytes); and the decoded bytes are the
+    synthesizer's in order, as in 9a."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.core.frame import FrameType
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.runtime.farm import CudaStreamFarm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ff.KERNELS:
+        k.launches = 0
+    farm = CudaStreamFarm(len(sigs), RATE, fetch="full")
+    feeds = []
+    feed_full = farm._feed_full
+
+    def counted(blocks):
+        s0, m0 = ff.SCAN.launches, ff.MASK.launches
+        res = feed_full(blocks)
+        feeds.append((blocks.shape[1], ff.SCAN.launches - s0,
+                      ff.MASK.launches - m0))
+        return res
+
+    farm._feed_full = counted
+    frames = [[] for _ in sigs]
+    total = len(sigs[0])
+    buf = np.empty((len(sigs), FARM_FEED), np.float32)
+    t0 = time.perf_counter()
+    for off in range(0, total, FARM_FEED):
+        w = min(FARM_FEED, total - off)
+        for i, x in enumerate(sigs):
+            buf[i, :w] = x[off : off + w]
+        for i, new in enumerate(farm.feed(buf[:, :w])):
+            frames[i].extend(new)
+    for i, new in enumerate(farm.finish()):
+        frames[i].extend(new)
+    dt = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ff.KERNELS}
+    st = dict(farm.stats)
+    out = {"streams": len(sigs), "wall_s": dt,
+           "samples_per_s": len(sigs) * total / dt,
+           **{k: st[k] for k in ("device_s", "walk_s", "dispatches")},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "launches_per_feed": [{"samples": w, "scan": a, "mask": b}
+                                 for w, a, b in sorted(set(feeds))]}
+    log(f"farm 10d (fetch='full'): {json.dumps(out)}")
+    if any(a != 1 or b != 1 for _, a, b in feeds) or (
+            launches["fused_scan"] != len(feeds)):
+        raise AssertionError(f"full farm launches per feed: {feeds}")
+
+    # the farm's chain of kernels against one at unfolded clocks
+    pt, mp_all, _ = _params(RATE)
+    st = None
+    for off in range(0, total, FARM_FEED):
+        x = torch.from_numpy(np.stack(
+            [sg[off : off + FARM_FEED] for sg in sigs])).to("cuda")
+        _, st = ff.fused_frontend(x, pt, mask_params=mp_all, state=st,
+                                  base=off, return_state=True,
+                                  select=("detect_mask",))
+    if not _same(farm._state, st):
+        raise AssertionError("farm 10d state != the chained fused_frontend")
+    del x, st
+
+    keep = (int(FrameType.NfcPollFrame), int(FrameType.NfcListenFrame))
+    shifted, worst, missed, sent = {}, (0.0, 0.0), {}, 0
+    for i, (g, w) in enumerate(zip(frames, want)):
+        gk = _frames_key(g)
+        if not gk:
+            raise AssertionError(f"farm 10d stream {i}: no frames")
+        if gk != w:
+            q = _timing_shift(gk, w)
+            if q is None or q[1] >= 1.0:
+                raise AssertionError(f"farm 10d stream {i} frames != host "
+                                     f"streaming decoder beyond timing: {q}")
+            shifted[i] = sum(a != b for a, b in zip(gk, w))
+            worst = tuple(max(a, b) for a, b in zip(worst, q))
+        tp = templates[i % len(templates)]
+        m = _missed([f.data for f in g if f.frame_type in keep],
+                    tp.sent * reps[i])
+        if m is None:
+            raise AssertionError(f"farm 10d stream {i}: frames the "
+                                 "synthesizer did not write")
+        sent += len(tp.sent) * reps[i]
+        if m:
+            missed[i] = m
+    if sum(missed.values()) > sent // 100:
+        raise AssertionError(f"farm 10d missed {missed} of {sent} frames")
+    if shifted:
+        out["box_drift"] = box_drift(sigs[min(shifted)])
+    out.update(streams_equal_host=len(sigs) - len(shifted),
+               frames_shifted_by_stream=shifted,
+               max_shift_samples=worst[0], max_shift_symbols=worst[1],
+               synth_frames=sent, synth_missed_by_stream=missed)
+    log(f"farm 10d state == chained fused_frontend (bit-exact); frames == "
+        f"host streaming decoder on {len(sigs) - len(shifted)} of "
+        f"{len(sigs)} streams, the others in sample bounds only (frames "
+        f"shifted by stream {shifted}, at most {worst[0]:.0f} samples, "
+        f"{worst[1]:.3f} symbols); synthesized bytes in order, "
+        f"{sum(missed.values())} of {sent} missed: {json.dumps(out)}")
     return out
 
 
@@ -2050,6 +2399,8 @@ def main(argv=None) -> int:
 
     # 6. the dense frontend at full width
     dense = run_dense_frontend(dev, caps)
+    # phase 10a's captures: the first FULL_CHUNKS chunks of these lanes
+    caps2 = [c[: FULL_CHUNKS * 65536].copy() for c in caps]
     del caps
     log(f"dense frontend {STREAMS} x 65536 at {RATE} Hz: {json.dumps(dense)}")
 
@@ -2064,14 +2415,34 @@ def main(argv=None) -> int:
 
     # 9. the live farm on the card at full width
     t0 = time.perf_counter()
-    farm = run_farm_phase(tpls)
+    farm, (farm_sigs, farm_reps, farm_want) = run_farm_phase(tpls)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # 10. the full-channel device frontend
+    t0 = time.perf_counter()
+    full = {"10a": run_full_path(caps2)}
+    del caps2
+    check_full_decode(tpls)
+    full["10c_bench_cli"] = check_full_surfaces(tpls, out_dir)
+    full["10d"] = run_full_farm(farm_sigs, farm_want, farm_reps, tpls)
+    del farm_sigs, farm_want
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
-                    "repair_ms": farm["repair"]["scan_kernel_ms"]},
+                    "repair_ms": farm["repair"]["scan_kernel_ms"],
+                    "pair_all_outputs_ms": tk["chunk_all_ms"],
+                    "pair_all_outputs_bound_ms": tk["chunk_all_bound"][0],
+                    "full_path_launches": full["10a"]["launches"][
+                        "fused_scan"],
+                    "full_farm_launches": full["10d"]["launches"][
+                        "fused_scan"]},
                 "fused_mask": {
                     "repair_ms": farm["repair"]["mask_kernel_ms"],
+                    "full_path_launches": full["10a"]["launches"][
+                        "fused_mask"],
+                    "full_farm_launches": full["10d"]["launches"][
+                        "fused_mask"],
                     "two_kernel_floor_ms": tk["two_kernel_floor_ms"],
                     "md_ms": tk["mask_md_ms"],
                     "md_plain_ms": tk["mask_md_plain_ms"],
@@ -2120,6 +2491,10 @@ def main(argv=None) -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
     if loaded:
         raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"full_path": {
+        "10a": full["10a"]["launches"],
+        "10d": {"total": full["10d"]["launches"],
+                "per_feed": full["10d"]["launches_per_feed"]}}}))
     log(json.dumps({"farm_launches": {
         run: {"total": r["launches"], "per_window": r["launches_per_window"]}
         for run, r in farm.items() if run != "repair"}}))

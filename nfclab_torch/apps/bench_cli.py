@@ -5,8 +5,8 @@ Counterpart of ``nfclab/apps/bench_cli.py``.  Measures the dense
 frontend (``dsp.frontend.jitted_frontend``: the conditioning kernel, the
 correlator channels and the masks) on ``--device`` (cuda unless asked for
 the CPU) and, optionally, the end-to-end decode rate over WAV captures
-(``runtime.batch.decode_batch``).  Each result names the device it ran
-on.
+(``runtime.batch.decode_batch``, with ``--frontend host|fused|mask``).
+Each result names the device it ran on.
 
     python -m nfclab_torch.apps.bench_cli --batch 64 --span 81920
 """
@@ -101,9 +101,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=6)
     ap.add_argument("--decode", nargs="*", help="wav files for end-to-end bench")
     ap.add_argument(
-        "--frontend", choices=["host", "mask"], default="host",
-        help="decode frontend: host channels, or mask (1-byte/sample "
-        "detect triggers from the fused frontend kernels)",
+        "--frontend", choices=["host", "fused", "mask"], default="host",
+        help="decode frontend: host channels, the fused frontend kernels "
+        "(channels + masks fetched), or mask (detect triggers only, "
+        "compacted on the device -- the lightest device frontend)",
     )
     ap.add_argument("--workers", type=int, default=None)
     ap.add_argument(
@@ -111,9 +112,11 @@ def main(argv=None) -> int:
         help="walk fan-out: processes, or threads (GIL-free native walks)",
     )
     ap.add_argument(
-        "--conditioner", choices=["native", "jax"], default="native",
-        help="conditioning backend for frontend=host: native (C++) or jax "
-        "(the device conditioner)",
+        "--conditioner", choices=["native", "jax", "device"],
+        default="native",
+        help="conditioning backend: native (C++) or jax (the device "
+        "conditioner) for frontend=host; device fetches the kernels' "
+        "conditioning too for frontend=fused (PCIe hosts)",
     )
     ap.add_argument(
         "--no-kernel", action="store_true",

@@ -8,11 +8,15 @@
 
 ``--frontend host`` decodes on the host alone; ``--frontend mask`` takes
 the detect triggers from the fused frontend kernels (dsp.cuda_channels) on
-``--device`` (cuda by default; cpu runs the kernels' plain versions).
-``--conditioner jax`` conditions on ``--device`` with the device
-conditioner (dsp.conditioner.condition_jax) instead of the C++ one; it
-combines with either frontend.  Multi-channel (ISO7816 logic) captures are
-not decoded by the port yet.
+``--device`` (cuda by default; cpu runs the kernels' plain versions);
+``--frontend fused`` takes the conditioning, every correlator channel and
+the detect mask from them (``fused_capture_all``), and only the
+carrier-edge tracker and the walk run on the host.  ``--conditioner jax``
+conditions on ``--device`` with the device conditioner
+(dsp.conditioner.condition_jax) instead of the C++ one; it combines with
+the host and mask frontends (the fused one conditions on the device
+anyway).  Multi-channel (ISO7816 logic) captures are not decoded by the
+port yet.
 """
 
 from __future__ import annotations
@@ -142,6 +146,17 @@ def _decode(path: str, args) -> list[Frame]:
         conditioner=args.conditioner,
         thresholds=_thresholds_from_args(args),
     )
+    if args.frontend == "fused":
+        # conditioning + correlator channels + detect triggers from the
+        # fused kernels; only the edge tracker + walk run on the host
+        from ..dsp.cuda_channels import fused_capture_all
+
+        cond, chans = fused_capture_all(
+            samples, info.sample_rate, args.power_threshold,
+            thresholds=dec.thresholds, device=args.device,
+        )
+        return dec.decode(samples, info.sample_rate, cond=cond,
+                          tpu_channels=chans)
     cond = chans = None
     if args.conditioner == "jax":
         # the device conditioner on --device; the decoder takes its arrays
@@ -239,14 +254,17 @@ def main(argv=None) -> int:
             "device conditioner (nfclab's name) on --device",
         )
         p.add_argument(
-            "--frontend", choices=("host", "mask"), default="host",
-            help="mask = detect triggers computed by the fused frontend "
-            "kernels (dsp.cuda_channels), compacted on the device",
+            "--frontend", choices=("host", "fused", "mask"),
+            default="host",
+            help="fused = conditioning, correlator channels and detect "
+            "triggers computed by the fused frontend kernels "
+            "(dsp.cuda_channels); mask = detect triggers only, compacted "
+            "on the device",
         )
         p.add_argument(
             "--device", choices=("cuda", "cpu"), default="cuda",
-            help="where --frontend mask and --conditioner jax run: cuda "
-            "(the kernels) or cpu (their plain PyTorch versions)",
+            help="where --frontend fused|mask and --conditioner jax run: "
+            "cuda (the kernels) or cpu (their plain PyTorch versions)",
         )
         p.set_defaults(fn=fn)
     args = ap.parse_args(argv)

@@ -1,15 +1,26 @@
-"""Device-computed detect triggers feeding the host symbol walk.
+"""Device-computed channels and detect triggers feeding the host symbol
+walk.
 
-Counterpart of ``nfclab/dsp/tpu_channels.py`` for the mask frontend: the
-chained exact-state engine runs many captures as independent streams
-through the fused frontend kernels (dsp/fused_frontend.py) in K-chunk
-windows with carried state, compacts the packed detect mask on the device
-to (indices, bits, count), and ``preload_channels`` stuffs the triggers
-into a decode context's ``LazyChannels`` cache, so the tech FSMs take their
-detect-trigger indices from the device instead of recomputing them on the
-host.  Conditioning and box channels still build natively on the host.
-``run_segmented_masks`` splits each stream's window over several kernel
-lanes (the live farm's engine, runtime/farm.py).
+Counterpart of ``nfclab/dsp/tpu_channels.py``.  Every entry point runs
+captures as independent streams through the fused frontend kernels
+(dsp/fused_frontend.py), and ``preload_channels`` stuffs the results into a
+decode context's ``LazyChannels`` cache, so the tech FSMs take them from
+the device instead of recomputing them on the host:
+
+- the mask frontend (``chained_batch_masks``, ``fused_capture_masks``):
+  the chained exact-state engine runs K-chunk windows with carried state
+  and compacts the packed detect mask on the device to (indices, bits,
+  count); conditioning and box channels build natively on the host.
+  ``run_segmented_masks`` splits each stream's window over several kernel
+  lanes (the live farm's engine, runtime/farm.py);
+- the full-channel frontend (``fused_capture_all``, ``fused_batch_all``):
+  the exact chained runner (``_run_batch_chained``) fetches the
+  conditioning, the box channels and the dense mask of every sample; only
+  the carrier-edge tracker runs on the host;
+- the box channels (``fused_capture_channels``, ``fused_batch_channels``):
+  the overlap-save block layout (``_run_batch_blocks``), every block an
+  independent stream from zero state, with the batch form's triggers
+  from the chained engine.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the kernels' plain versions); with no card and no ``device="cpu"`` they
@@ -24,6 +35,11 @@ import numpy as np
 import torch
 
 from ..core.params import SignalParams, nfca_bitrates
+
+# body / halo sizes of the overlap-save block layout; H + L must be a
+# multiple of the kernels' TILE (128)
+DEFAULT_L = 24576
+DEFAULT_H = 8192
 
 _WARMUP = 1024  # detect indices start here (channels.py / NfcA.cpp:220-221)
 
@@ -88,6 +104,9 @@ def fetch_names(sample_rate: int) -> tuple:
     """Rate's box channel names + detect_mask (the non-conditioning
     kernel output set)."""
     return tuple(box_keys(sample_rate)) + ("detect_mask",)
+
+
+_COND_FETCH = ("envelope", "filtered", "deviation", "average", "mod_depth")
 
 
 class DeviceUnavailable(RuntimeError):
@@ -207,8 +226,9 @@ def _no_lap(step: str) -> None:
 
 
 class StepTimes(dict):
-    """Seconds spent in each step of chained_batch_masks, summed over its
-    windows (pass one as ``timings``).  Each step is ended by a device
+    """Seconds spent in each step of chained_batch_masks or
+    _run_batch_chained (and fused_batch_all), summed over their windows or
+    chunks (pass one as ``timings``).  Each step is ended by a device
     sync, so a kernel's time lands in the step that launched it; without
     a StepTimes the engine adds no sync."""
 
@@ -706,6 +726,406 @@ def fused_batch_masks(
         captures, sample_rate, power_level_threshold,
         thresholds=thresholds, device=device,
     )
+
+
+# --------------------------------------------------------------------------
+# Dense outputs: the full-channel frontend and the overlap-save box layout
+
+
+def _fetch_dense(outs: dict, names: tuple, n: int) -> dict:
+    """{name: [n, T] host array} of the first n streams of the kernels'
+    time-major [T, B] outputs, in ONE device-to-host transfer: every
+    output is transposed into one byte buffer on the device (f32 outputs
+    first, then the u8 mask), which crosses to the host at once."""
+    T = outs[names[0]].shape[0]
+    dev = outs[names[0]].device
+    fl = [nm for nm in names if outs[nm].dtype == torch.float32]
+    u8 = [nm for nm in names if outs[nm].dtype == torch.uint8]
+    per = n * T
+    nf = 4 * len(fl) * per
+    buf = torch.empty(nf + len(u8) * per, dtype=torch.uint8, device=dev)
+    f = buf[:nf].view(torch.float32).view(len(fl), n, T)
+    m = buf[nf:].view(len(u8), n, T)
+    for j, nm in enumerate(fl):
+        f[j].copy_(outs[nm][:, :n].t())
+    for j, nm in enumerate(u8):
+        m[j].copy_(outs[nm][:, :n].t())
+    host = buf.cpu().numpy()
+    hf = host[:nf].view(np.float32).reshape(len(fl), n, T)
+    hm = host[nf:].reshape(len(u8), n, T)
+    out = {nm: hf[j] for j, nm in enumerate(fl)}
+    out.update({nm: hm[j] for j, nm in enumerate(u8)})
+    return out
+
+
+def _run_batch_blocks(
+    captures: list[np.ndarray],
+    sample_rate: int,
+    power_level_threshold: float,
+    L: int,
+    H: int,
+    fetch: tuple,
+    thresholds=None,
+    mask_margin: float = 0.0,
+    device="cuda",
+) -> list[dict[str, np.ndarray]]:
+    """Run MANY captures through the fused kernels in ONE launch of each
+    and ONE fetch: every capture's overlap-save blocks stack along the
+    kernels' stream axis.  Returns one channel dict (host arrays,
+    len(samples)) per capture.
+
+    Block scheme: the capture is cut into ``L``-sample bodies, each
+    preceded by an ``H``-sample halo; every (halo + body) row runs as an
+    independent stream from zero kernel state at clock 0.  Row 0 is
+    samples[:H+L] (its body needs no halo: zero state IS the stream
+    start), row i samples[i*L-H : i*L+L], its body sliced at H.
+    Conditioning memory is short and box lookbacks are <= 474 samples +
+    1024 ring warm-up, so an 8k halo makes every body sample's box value
+    converge to the continuous-stream value within f32 roundoff.
+
+    mask_margin > 0 loosens the A/F/V SD trigger thresholds by that
+    relative amount in the kernel's detect mask ONLY (the fetched channels
+    are unchanged), making the mask a conservative superset of the host
+    f64 triggers the walk re-checks.
+
+    Block-restart soundness (why this path may NOT feed conditioning
+    consumers -- use _run_batch_chained there): each block row restarts at
+    clock 0 over a zeros halo, so a halo that BEGINS mid-modulation seeds
+    the envelope from the modulated level and the freeze rule
+    (NfcTech.cpp:42-53) keeps it low for ~100k samples.  Box sums are
+    raw-value windows (exact after the halo, restart only changes the
+    roundoff family), but the power gate is not superset-safe under an
+    under-estimated envelope: the batch form (fused_batch_channels) takes
+    its detect triggers from the chained exact-state engine."""
+    from . import fused_frontend as ff
+    from ..core.thresholds import DecoderThresholds
+    from .frontend import _params_tuple
+
+    T = H + L
+    if T % ff.TILE:
+        raise ValueError(f"H + L = {T} is not a multiple of {ff.TILE}")
+    dev = resolve_device(device)
+    layouts = []  # (n, nb, row_offset) per capture
+    rows = 0
+    caps = []
+    for samples in captures:
+        samples = np.ascontiguousarray(samples, np.float32)
+        caps.append(samples)
+        n = len(samples)
+        nb = max(1, -(-n // L))
+        layouts.append((n, nb, rows))
+        rows += nb
+    if not rows:
+        return []
+    x = np.zeros((rows, T), np.float32)
+    for samples, (n, nb, ro) in zip(caps, layouts):
+        for i in range(nb):
+            if i == 0:
+                seg = samples[:T]
+                x[ro, : len(seg)] = seg
+            else:
+                s = i * L - H
+                seg = samples[s : i * L + L]
+                x[ro + i, : len(seg)] = seg
+
+    mask_params = (thresholds or DecoderThresholds()).detect_mask_tuple(
+        power_level_threshold
+    )
+    if mask_margin:
+        p, a, b_deep, f, v = mask_params
+        m = 1.0 - mask_margin
+        mask_params = (p, a * m, b_deep, f * m, v * m)
+    params = SignalParams(
+        sample_rate, power_level_threshold=power_level_threshold
+    )
+    plan = ff.kernel_plan(sample_rate)
+    sel = ff._normalize_select(fetch, plan)
+    xd = upload_samples(x, dev)
+    del x
+    res, _ = ff.run_chunk(
+        xd.t().contiguous(),
+        torch.zeros(plan.nstate, rows, dtype=torch.float32, device=dev),
+        0, _params_tuple(params), mask_params, plan, sel,
+    )
+    del xd
+    fetched = _fetch_dense(res, sel, rows)
+    del res
+
+    outs: list[dict[str, np.ndarray]] = []
+    for n, nb, ro in layouts:
+        out: dict[str, np.ndarray] = {}
+        for name, dense in fetched.items():
+            arr = np.empty(n, dense.dtype)
+            for i in range(nb):
+                body_off = 0 if i == 0 else H
+                lo = i * L
+                hi = min(lo + L, n)
+                arr[lo:hi] = dense[ro + i, body_off : body_off + (hi - lo)]
+            out[name] = arr
+        outs.append(out)
+    return outs
+
+
+def _run_batch_chained(
+    captures: list[np.ndarray],
+    sample_rate: int,
+    power_level_threshold: float,
+    fetch: tuple,
+    thresholds=None,
+    chunk: int = 1 << 16,
+    device="cuda",
+    timings: StepTimes | None = None,
+) -> list[dict[str, np.ndarray]]:
+    """EXACT device frontend: captures ride the kernels as independent
+    streams through chained chunks with carried state -- outputs
+    bit-identical to a monolithic per-capture pass (fused_frontend.py's
+    state contract).
+
+    This is the required path whenever KERNEL CONDITIONING is consumed:
+    the overlap-save block path (_run_batch_blocks) seeds each block from
+    a zeros halo, and the envelope FREEZES during deep modulation
+    (NfcTech.cpp:42-53 update=false), so no halo length can reconstruct a
+    frozen envelope across a block boundary that lands mid-frame.
+
+    Captures are sorted by length (desc) so finished streams form a
+    suffix: each chunk uploads, runs and fetches only the live prefix,
+    with the live streams' [nstate, live] state carried at base = the
+    chunk's clock; the kernels take any stream count, so nothing is
+    padded.  Each chunk's outputs cross to the host in one transfer
+    (_fetch_dense); the results come back in caller order.  `timings` (a
+    StepTimes) collects the seconds of each step: setup, stage, upload,
+    chunks, fetch, assemble."""
+    from . import fused_frontend as ff
+    from ..core.thresholds import DecoderThresholds
+    from .frontend import _params_tuple
+
+    if chunk % ff.TILE:
+        raise ValueError(f"chunk must be a multiple of {ff.TILE}")
+    dev = resolve_device(device)
+    lap = _no_lap if timings is None else timings.start(dev)
+    if not captures:
+        return []
+    order = sorted(range(len(captures)), key=lambda i: -len(captures[i]))
+    caps = [np.ascontiguousarray(captures[i], np.float32) for i in order]
+    lens = [len(c) for c in caps]
+    t_max = lens[0]
+    if t_max >= 2 ** 31:
+        raise ValueError("capture exceeds the kernels' int32 clock")
+    n_chunks = -(-t_max // chunk)
+
+    params = SignalParams(
+        sample_rate, power_level_threshold=power_level_threshold
+    )
+    mask_params = (thresholds or DecoderThresholds()).detect_mask_tuple(
+        power_level_threshold
+    )
+    pt = _params_tuple(params)
+    plan = ff.kernel_plan(sample_rate)
+    sel = ff._normalize_select(fetch, plan)
+
+    outs = [
+        {
+            name: np.empty(
+                n, np.uint8 if name == "detect_mask" else np.float32
+            )
+            for name in sel
+        }
+        for n in lens
+    ]
+    state = torch.zeros(plan.nstate, len(caps), dtype=torch.float32,
+                        device=dev)
+    lap("setup")
+    for k in range(n_chunks):
+        lo = k * chunk
+        live = sum(1 for n in lens if n > lo)
+        block = _stage(caps, lo, chunk, live)
+        lap("stage")
+        x = upload_samples(block, dev).t().contiguous()
+        del block
+        lap("upload")
+        res, state = ff.run_chunk(x, state[:, :live].contiguous(), lo, pt,
+                                  mask_params, plan, sel)
+        del x
+        lap("chunks")
+        fetched = _fetch_dense(res, sel, live)
+        del res
+        lap("fetch")
+        for i in range(live):
+            hi = min(lens[i], lo + chunk)
+            for name in sel:
+                outs[i][name][lo:hi] = fetched[name][i, : hi - lo]
+        del fetched
+        lap("assemble")
+
+    inv = [0] * len(captures)
+    for pos, i in enumerate(order):
+        inv[i] = pos
+    return [outs[inv[i]] for i in range(len(captures))]
+
+
+def _conditioned(samples: np.ndarray, arrs: dict, params):
+    """Conditioned of one capture from the kernels' conditioning outputs;
+    the carrier-edge tracker (which the kernels do not emit) runs on the
+    host from a zero state at base 0."""
+    from ..native.binding import Conditioned, edge_track_into
+
+    n = len(samples)
+    bufs = {
+        "value": np.ascontiguousarray(samples, np.float32),
+        **{k: arrs[k] for k in _COND_FETCH},
+        "edge_peak": np.empty(n, np.float32),
+        "edge_time": np.empty(n, np.uint32),
+    }
+    state = np.zeros(2, np.float64)
+    edge_track_into(params, state, bufs, 0, n, 0)
+    return Conditioned(
+        bufs["value"], bufs["envelope"], bufs["filtered"], bufs["deviation"],
+        bufs["average"], bufs["mod_depth"], bufs["edge_peak"],
+        bufs["edge_time"],
+    )
+
+
+def _run_capture_blocks(
+    samples: np.ndarray,
+    sample_rate: int,
+    power_level_threshold: float,
+    L: int,
+    H: int,
+    fetch: tuple,
+    thresholds=None,
+    device="cuda",
+) -> dict[str, np.ndarray]:
+    """Run one capture through the fused kernels as overlap-save blocks;
+    returns host arrays (len(samples)) for the requested channels."""
+    return _run_batch_blocks(
+        [samples], sample_rate, power_level_threshold, L, H, fetch,
+        thresholds=thresholds, device=device,
+    )[0]
+
+
+def fused_capture_channels(
+    samples: np.ndarray,
+    sample_rate: int,
+    power_level_threshold: float = 0.01,
+    L: int = DEFAULT_L,
+    H: int = DEFAULT_H,
+    thresholds=None,
+    device="cuda",
+) -> dict[str, np.ndarray]:
+    """Box channels + packed detect_mask for one capture, from the block
+    layout (device compute; conditioning stays host-side -- see
+    fused_capture_all for the full device frontend)."""
+    return _run_capture_blocks(
+        samples, sample_rate, power_level_threshold, L, H,
+        fetch_names(sample_rate),
+        thresholds=thresholds, device=device,
+    )
+
+
+def fused_capture_all(
+    samples: np.ndarray,
+    sample_rate: int,
+    power_level_threshold: float = 0.01,
+    L: int = DEFAULT_L,
+    H: int = DEFAULT_H,
+    thresholds=None,
+    device="cuda",
+):
+    """Full device frontend for one capture: (Conditioned, channels).
+
+    Conditioning comes from the same chained kernel pass that produces the
+    box channels and the detect mask (_run_batch_chained: carried state,
+    bit-identical to a monolithic pass; overlap-save blocks are NOT sound
+    for conditioning), and only the carrier-edge peak tracker runs on the
+    host.  L/H are accepted for API compatibility; the chained layout has
+    no halo."""
+    return fused_batch_all(
+        [samples], sample_rate, power_level_threshold,
+        thresholds=thresholds, device=device,
+    )[0]
+
+
+def fused_batch_channels(
+    captures: list[np.ndarray],
+    sample_rate: int,
+    power_level_threshold: float = 0.01,
+    L: int = DEFAULT_L,
+    H: int = DEFAULT_H,
+    thresholds=None,
+    device="cuda",
+) -> list[dict[str, np.ndarray]]:
+    """Box channels + detect triggers for MANY captures; one dict per
+    capture.  Box channels ride the one-launch overlap-save block layout
+    (raw-value windows tolerate block restarts -- only the roundoff family
+    changes); the detect triggers come from the chained exact-state engine
+    in SPARSE form so their power gate reads the true streaming envelope.
+    The SD margin covers the chained-f32 vs block-f32 box roundoff the
+    same way it covers f32-vs-host-f64.
+
+    The two device passes are independent until the merge: the chained
+    trigger pass runs on a background thread, on a CUDA stream of its own
+    whose work it ends before it returns host arrays, while the block pass
+    runs on the caller's thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = resolve_device(device)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def triggers():
+        with torch.cuda.stream(side):
+            out = chained_batch_masks(
+                captures, sample_rate, power_level_threshold,
+                thresholds=thresholds, device=dev,
+            )
+            if side is not None:
+                side.synchronize()
+        return out
+
+    with ThreadPoolExecutor(1) as bg:
+        fut = bg.submit(triggers)
+        boxes = _run_batch_blocks(
+            captures, sample_rate, power_level_threshold, L, H,
+            tuple(box_keys(sample_rate)), thresholds=thresholds, device=dev,
+        )
+        sparse = fut.result()
+    for b, s in zip(boxes, sparse):
+        b.update(s)
+    return boxes
+
+
+def fused_batch_all(
+    captures: list[np.ndarray],
+    sample_rate: int,
+    power_level_threshold: float = 0.01,
+    L: int = DEFAULT_L,
+    H: int = DEFAULT_H,
+    thresholds=None,
+    device="cuda",
+    timings: StepTimes | None = None,
+) -> list[tuple]:
+    """Full device frontend for MANY captures; returns one
+    (Conditioned, channels) pair per capture.  Runs the EXACT
+    carried-state chained path (_run_batch_chained) -- kernel conditioning
+    demands it -- with captures stacked as kernel streams, one launch of
+    each kernel and one fetch per chunk.  Only the carrier-edge peak
+    tracker (not emitted by the kernels) runs per capture on the host;
+    `timings` (a StepTimes) gets its seconds as ``edge_tracker`` beside
+    the chained runner's steps."""
+    arr_sets = _run_batch_chained(
+        captures, sample_rate, power_level_threshold,
+        fetch_names(sample_rate) + _COND_FETCH, thresholds=thresholds,
+        device=device, timings=timings,
+    )
+    params = SignalParams(
+        sample_rate, power_level_threshold=power_level_threshold
+    )
+    names = fetch_names(sample_rate)
+    outs = [(_conditioned(samples, arrs, params),
+             {k: arrs[k] for k in names})
+            for samples, arrs in zip(captures, arr_sets)]
+    if timings is not None and captures:
+        timings.lap("edge_tracker")
+    return outs
 
 
 def idx_key_map(sample_rate: int, power_level_threshold: float,

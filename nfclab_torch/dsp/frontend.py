@@ -16,8 +16,12 @@ consume is computed here as one function over a batch of signal blocks
 
 Beside the kernel these are plain PyTorch operations in nfclab's order and
 layout (there they were XLA operations), with the same 21 output names and
-dtypes at 10 MS/s (13 f32 channels, 8 bool masks).  The fused frontend
-(``make_fused_frontend``) waits for ROADMAP Queue 1 item 8.
+dtypes at 10 MS/s (13 f32 channels, 8 bool masks).
+
+``make_fused_frontend`` builds the fused frontend instead: the two fused
+kernels (dsp/fused_frontend.py) compute the conditioning, mod_depth,
+every box channel and the packed all-tech ``detect_mask`` in one pass,
+as ``[B, T]`` outputs.
 """
 
 from __future__ import annotations
@@ -202,3 +206,62 @@ def jitted_frontend(sample_rate: int, power_level_threshold: float = 0.01,
     params = SignalParams(sample_rate,
                           power_level_threshold=power_level_threshold)
     return make_frontend(params, device=device)
+
+
+def make_fused_frontend(
+    params: SignalParams,
+    corr_thresholds: dict | None = None,
+    native_layout: bool = False,
+    device="cuda",
+):
+    """Production-throughput frontend: the fused kernels (conditioning +
+    mod depth + every box channel in one sweep) plus in-kernel detect
+    triggers for ALL four technologies packed into the single
+    `detect_mask` bitfield output, as [B, T] outputs on ``device`` (cuda
+    unless the caller asks for the CPU: the kernels' plain versions; the
+    input is moved there first).  Box sums carry the same f32 running-sum
+    roundoff family as the reference's own integrators; the bit-exact
+    golden path uses the unfused conditioner + host f64 channels.
+
+    native_layout=True is nfclab's [g, t, sub, 128] TPU tiling, which the
+    CUDA kernels do not have: it raises ValueError."""
+    from .cuda_channels import resolve_device
+    from .fused_frontend import fused_frontend
+
+    if native_layout:
+        raise ValueError(
+            "native_layout=True is the TPU kernel's [g, t, sub, 128] "
+            "tiling; the CUDA kernels return [B, T] outputs "
+            "(native_layout=False)"
+        )
+    dev = resolve_device(device)
+    pt = _params_tuple(params)
+    thr = _default_corr_thresholds()
+    if corr_thresholds:
+        thr.update(corr_thresholds)
+    mask_params = (
+        float(params.power_level_threshold),
+        float(thr["nfca"]),
+        float(thr["nfcb"]),
+        float(thr["nfcf"]),
+        float(thr["nfcv"]),
+    )
+
+    def run(value):
+        value = torch.as_tensor(value, device=dev)
+        return fused_frontend(value, pt, mask_params=mask_params,
+                              sample_rate=params.sample_rate)
+
+    return run
+
+
+@functools.lru_cache(maxsize=8)
+def jitted_fused_frontend(sample_rate: int,
+                          power_level_threshold: float = 0.01,
+                          device="cuda"):
+    """The fn of make_fused_frontend (native_layout=False) for a rate and
+    device, built once (nfclab's name: there it was a jitted program;
+    PyTorch runs it eagerly)."""
+    params = SignalParams(sample_rate,
+                          power_level_threshold=power_level_threshold)
+    return make_fused_frontend(params, native_layout=False, device=device)

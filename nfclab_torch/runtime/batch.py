@@ -15,8 +15,15 @@ walks fan out over host workers (threads or processes).
   fused frontend kernels in one chained pass
   (``dsp.cuda_channels.fused_batch_masks``), while the parent conditions
   natively.
-- ``frontend="fused"`` and ``conditioner="device"`` (the full-channel
-  device frontend) are not ported yet: ROADMAP Queue 1 item 8.
+- ``frontend="fused"`` with ``conditioner="device"``: the full-channel
+  device frontend (``dsp.cuda_channels.fused_batch_all``): conditioning,
+  every correlator channel and the detect mask from the fused kernels'
+  exact chained pass; only the carrier-edge tracker and the walks run on
+  the host.
+- ``frontend="fused"`` with another conditioner: the box channels (the
+  overlap-save block layout) and the detect triggers (the chained
+  engine) from the fused kernels (``dsp.cuda_channels.
+  fused_batch_channels``); native conditioning runs in the workers.
 """
 
 from __future__ import annotations
@@ -140,13 +147,7 @@ def decode_batch(
 
     if frontend not in ("host", "mask", "fused"):
         raise ValueError(f"unknown frontend {frontend!r}")
-    if frontend == "fused" or conditioner == "device":
-        raise ValueError(
-            "the full-channel device frontend (frontend='fused', "
-            "conditioner='device') is not ported to nfclab_torch yet "
-            "(ROADMAP Queue 1 item 8)"
-        )
-    if conditioner not in ("jax", "native"):
+    if conditioner not in ("jax", "native", "device"):
         raise ValueError(f"unknown conditioner {conditioner!r}")
     if not paths:
         return {}
@@ -205,6 +206,37 @@ def decode_batch(
                 )
                 cond_sets[i] = condition_exact(samples, params)
             channel_sets = fut.result()
+    elif frontend == "fused":
+        # all captures in one device pass; captures must share one sample
+        # rate
+        from ..dsp.cuda_channels import resolve_device
+
+        resolve_device(device)
+        if len(set(rates)) > 1:
+            raise ValueError(
+                "fused batch decode requires a uniform sample rate; "
+                f"got {sorted(set(rates))}"
+            )
+        if conditioner == "device":
+            # full device frontend: conditioning AND channels from the
+            # fused kernels (5 extra dense f32 fetches a capture)
+            from ..dsp.cuda_channels import fused_batch_all
+
+            for i, (cond, chans) in enumerate(fused_batch_all(
+                all_samples, rates[0], power_thr, thresholds=thresholds,
+                device=device,
+            )):
+                cond_sets[i] = cond
+                channel_sets[i] = chans
+        else:
+            # channels + detect indices from the device; conditioning runs
+            # natively IN the workers (cond=None), parallel across the pool
+            from ..dsp.cuda_channels import fused_batch_channels
+
+            channel_sets = fused_batch_channels(
+                all_samples, rates[0], power_thr, thresholds=thresholds,
+                device=device,
+            )
 
     jobs = []
     for samples, rate, cond, tpu_channels in zip(

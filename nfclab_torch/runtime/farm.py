@@ -1,17 +1,24 @@
 """Multi-stream decode farm on CUDA: N live magnitude streams decoded
-concurrently, the detect phase on the card.
+concurrently, the dense phase on the card.
 
-Counterpart of ``nfclab/runtime/farm.py``'s ``TpuStreamFarm`` in its
-deployment mode, ``fetch="mask"``: the fused frontend kernels
-(dsp/fused_frontend.py) compute every stream's packed detect mask
-chunk by chunk with carried state, the mask is compacted on the card to
-O(triggers), and the host runs the native conditioner, the lazily
-computed event channels and the per-stream event walk + protocol FSMs
-(MaskFedStream).  One background thread owns upload + dispatch + fetch
-on a CUDA stream of the farm's own while the caller's thread walks the
-previous window; with ``segments`` > 1 full windows after the first go
-through the segmented speculative engine
-(cuda_channels.run_segmented_masks).
+Counterpart of ``nfclab/runtime/farm.py``'s ``TpuStreamFarm``, in both
+of its modes:
+
+- ``fetch="full"`` (the default): the fused frontend kernels
+  (dsp/fused_frontend.py) condition every stream and compute every
+  correlator channel and the packed detect mask, one chunk a feed with
+  carried state; the chunk's outputs cross to the host in one transfer,
+  and the host runs only the carrier-edge tracker, the lazily computed
+  event channels that read the exact conditioning and the per-stream
+  event walk + protocol FSMs (KernelFedStream), on the caller's thread;
+- ``fetch="mask"``: the kernels compute every stream's packed detect mask
+  chunk by chunk with carried state, the mask is compacted on the card to
+  O(triggers), and the host runs the native conditioner, the lazy event
+  channels and the walk (MaskFedStream).  One background thread owns
+  upload + dispatch + fetch on a CUDA stream of the farm's own while the
+  caller's thread walks the previous window; with ``segments`` > 1 full
+  windows after the first go through the segmented speculative engine
+  (cuda_channels.run_segmented_masks).
 
 Kernel base clocks are int32: for unbounded streams the farm folds the
 absolute chunk clock to ``fold + clock % fold`` where ``fold`` is the
@@ -20,11 +27,9 @@ rate's plan modulus (every ring size divides it, and the fold keeps
 ring phases stay consistent forever while frame clocks remain absolute
 int64 on the host.
 
-``_init_idx_entries``, ``_append_mask_idx``, ``_append_sparse_idx``,
-``_DispatchPipeline`` and ``MaskFedStream`` are copies of nfclab's
-(tests/test_torch_copies.py holds them to it).  The full-channel mode
-(``fetch="full"``, ``KernelFedStream``) is not ported yet: ROADMAP
-Queue 1 item 8.
+``KernelFedStream``, ``_init_idx_entries``, ``_append_mask_idx``,
+``_append_sparse_idx``, ``_DispatchPipeline`` and ``MaskFedStream`` are
+copies of nfclab's (tests/test_torch_copies.py holds them to it).
 """
 
 from __future__ import annotations
@@ -36,13 +41,152 @@ import torch
 
 from ..core.frame import Frame
 from ..core.params import SignalParams
-from ..dsp.cuda_channels import _WARMUP, idx_key_map, resolve_device
+from ..dsp.cuda_channels import (
+    _WARMUP, box_keys, idx_key_map, resolve_device,
+)
+from .decoder import CarrierDetector, DecoderContext, walk
 from .streaming import StreamingNfcDecoder
 
 # the segments policy's lane ceiling: nfclab's kernel tile width, kept so
 # the farm splits a window exactly as nfclab's does (the CUDA kernels
 # themselves take any lane count)
 LANES = 1024
+
+_COND_KEYS = ("envelope", "filtered", "deviation", "average", "mod_depth")
+
+
+class KernelFedStream(StreamingNfcDecoder):
+    """Incremental decoder whose conditioning + correlator channels arrive
+    as externally computed chunks (from the fused TPU kernel); the host
+    runs only the edge tracker, the lazy event channels and the walk.
+
+    ``window=N`` bounds memory exactly like the host streaming decoder:
+    only the trailing N..slack*N samples of every dense array stay
+    resident, clocks stay absolute, and the kernel-fed cache entries shift
+    with the window (LazyChannels.rebind handles them generically)."""
+
+    def __init__(self, sample_rate: int, window: int | None = None,
+                 **decoder_kwargs):
+        super().__init__(sample_rate, window=window, **decoder_kwargs)
+        self._edge_state = np.zeros(2, np.float64)
+        self._box_entries: list | None = None
+        self._idx_entries: list | None = None
+
+    def feed(self, block):  # pragma: no cover - guard
+        raise TypeError(
+            "KernelFedStream consumes kernel chunks via feed_external(); "
+            "use StreamingNfcDecoder for host-conditioned feeds"
+        )
+
+    # ----------------------------------------------------------- kernel feed
+
+    def feed_external(
+        self,
+        value: np.ndarray,
+        cond_chunks: dict[str, np.ndarray],
+        box_chunks: dict[str, np.ndarray],
+        mask_chunk: np.ndarray,
+    ) -> list[Frame]:
+        """Ingest one chunk: raw samples, the kernel's five conditioned
+        channels, the nine box channels and the packed detect mask (all of
+        equal length); returns newly completed frames."""
+        assert not self._finished, "stream already finished"
+        self._compact()
+        m = len(value)
+        self._ensure_capacity(m)
+        abs_lo = self._n  # absolute clock of this chunk's first sample
+        plo = abs_lo - self._base  # physical offset in the window buffers
+        self._bufs["value"][plo : plo + m] = value
+        for k in _COND_KEYS:
+            self._bufs[k][plo : plo + m] = cond_chunks[k]
+        from ..native.binding import edge_track_into
+
+        edge_track_into(
+            self.params, self._edge_state, self._bufs, plo, m, self._base
+        )
+        self._n += m
+
+        full = self._view()
+        if self._ctx is None:
+            ctx = DecoderContext(
+                full, self.sample_rate, self.params,
+                self._proto.stream_time, thresholds=self._proto.thresholds,
+            )
+            self._ctx = ctx
+            if self.window:
+                ctx.channels.capacity_hint = (
+                    self.slack * self.window + (1 << 17)
+                )
+            self._init_kernel_entries(ctx.channels)
+            self._append_kernel_chunks(
+                ctx.channels, box_chunks, mask_chunk, abs_lo, abs_lo + m
+            )
+            self._carrier = CarrierDetector(ctx)
+            self._techs = self._proto._make_techs(ctx)
+            for tech in self._techs:
+                tech.initialize()
+        else:
+            ctx = self._ctx
+            ctx.cond = full
+            ctx.n = len(full.value)
+            ctx.channels.rebind(full, self._base)
+            self._append_kernel_chunks(
+                ctx.channels, box_chunks, mask_chunk, abs_lo, abs_lo + m
+            )
+            # host-lazy entries (carrier crossings, mod-depth gates) extend
+            # over the new tail; kernel-fed entries are already current
+            ctx.channels.extend_all()
+            self._carrier.bind(ctx)
+            for tech in self._techs:
+                tech.bind_channels()
+
+        before = len(ctx.frames)
+        self._t = walk(ctx, self._carrier, self._techs, self._t)
+        return ctx.frames[before:]
+
+    # ------------------------------------------------------- entry plumbing
+
+    def _init_kernel_entries(self, lz):
+        """Create the box/index cache entries the kernel feeds, BEFORE the
+        techs bind (so no getter ever host-computes them)."""
+        from ..dsp.fused_frontend import MASK_LAYOUT
+        from ..native.binding import alloc_array
+
+        cap = max(len(self._bufs["value"]), 4096, lz.capacity_hint)
+        self._box_entries = []
+        for name, (key, kind_code, width, lag) in box_keys(
+            self.sample_rate
+        ).items():
+            lz._cache[key] = {
+                "arr": alloc_array(cap, np.float32),
+                "n": 0,
+                "acc": np.zeros(1, np.float64),
+                "idx": None,
+                "scanned": 0,
+                "extend": None,
+                "kind": "box",
+                "meta": (kind_code, width, lag),
+            }
+            self._box_entries.append((name, key))
+        self._idx_entries = _init_idx_entries(
+            lz, self.sample_rate, self.params.power_level_threshold,
+            self._proto.thresholds,
+        )
+        lz._plan = None
+
+    def _append_kernel_chunks(self, lz, box_chunks, mask_chunk,
+                              abs_lo, abs_hi):
+        """Append one chunk (absolute clocks [abs_lo, abs_hi)) into the
+        kernel-fed entries; physical buffer offsets follow the window."""
+        from ..dsp.channels import LazyChannels
+
+        plo, phi = abs_lo - lz.base, abs_hi - lz.base
+        for name, key in self._box_entries:
+            ent = lz._entry(key)  # grows the buffer with the window
+            ent["arr"][plo:phi] = box_chunks[name]
+            ent["n"] = abs_hi
+        _append_mask_idx(lz, self._idx_entries, mask_chunk, abs_lo, abs_hi)
+
 
 
 def _init_idx_entries(lz, sample_rate, power_level_threshold, thresholds):
@@ -261,22 +405,29 @@ class MaskFedStream(StreamingNfcDecoder):
 
 class CudaStreamFarm:
     """Decode ``n_streams`` independent magnitude streams with the
-    dense detect phase on the card; host walkers emit frames per stream.
+    dense phase on the card; host walkers emit frames per stream.
 
     feed(blocks[n_streams, width]) -> list of per-stream new frames.
     Streams that end early can be padded with zeros (silence decodes to
     carrier events only).
 
-    ``fetch="mask"`` (the deployment mode, and the only one ported) runs
-    a PIPELINED chained engine: feeds stage until ``k_chunks`` x
-    CHAIN_CHUNK samples accumulate, then one window chains the K chunks
-    through the kernels with carried state (exact streaming conditioning
-    makes the mask's power gate sound) and compacts the detect mask ON
-    THE CARD so the fetch is O(triggers).  A background thread owns
-    upload + dispatch + fetch, on a CUDA stream of the farm's own, while
-    the caller's thread walks the previous window.  Frames for a window
-    surface on a later feed() (up to ``pipeline_depth`` windows behind);
-    finish() flushes everything.  An error on that thread (a build,
+    ``fetch="full"`` (the default) runs both kernels over each feed's
+    chunk (its width a multiple of the kernels' TILE) with every output
+    selected and carried state, fetches the 15 outputs densely in one
+    transfer (57 B/sample at 10 MS/s) and walks synchronously on the
+    caller's thread (KernelFedStream): the kernel-fed-channel
+    configuration for hosts on the card's PCIe.  ``segments`` > 1 is
+    refused there (the segmented engine splits mask windows only).
+
+    ``fetch="mask"`` runs a PIPELINED chained engine: feeds stage until
+    ``k_chunks`` x CHAIN_CHUNK samples accumulate, then one window chains
+    the K chunks through the kernels with carried state (exact streaming
+    conditioning makes the mask's power gate sound) and compacts the
+    detect mask ON THE CARD so the fetch is O(triggers).  A background
+    thread owns upload + dispatch + fetch, on a CUDA stream of the farm's
+    own, while the caller's thread walks the previous window.  Frames for
+    a window surface on a later feed() (up to ``pipeline_depth`` windows
+    behind); finish() flushes everything.  An error on that thread (a build,
     launch or CUDA error) surfaces from the feed() or finish() that
     drains its window; ``recover_unprocessed()`` then hands back every
     sample not yet walked.
@@ -298,11 +449,13 @@ class CudaStreamFarm:
     farm backs off to the serial chain and re-probes with exponentially
     growing spacing; dense or carrier-on traffic keeps the full speedup.
 
-    ``fetch="full"`` (every kernel channel fetched densely, nfclab's
-    ``KernelFedStream``) is not ported yet and raises ValueError; the
-    default is ``"mask"``.  ``device="cpu"`` runs the kernels' plain
-    versions; with no card and no ``device="cpu"`` the constructor
-    raises DeviceUnavailable."""
+    ``device="cpu"`` runs the kernels' plain versions; with no card and
+    no ``device="cpu"`` the constructor raises DeviceUnavailable.
+
+    ``stats``: ``device_s`` (the IO thread's upload + launches + fetch in
+    mask mode; the same steps on the caller's thread in full mode),
+    ``walk_s``, ``wait_s``, ``dispatches`` (windows in mask mode, feeds in
+    full mode), ``drained_samples`` and the segmented engine's counts."""
 
     def __init__(
         self,
@@ -310,7 +463,7 @@ class CudaStreamFarm:
         sample_rate: int = 10_000_000,
         power_level_threshold: float = 0.01,
         window: int | None = None,
-        fetch: str = "mask",
+        fetch: str = "full",
         k_chunks: int = 32,
         pipeline_depth: int = 2,
         cap_div: int = 16,
@@ -322,12 +475,6 @@ class CudaStreamFarm:
     ):
         if fetch not in ("full", "mask"):
             raise ValueError("fetch must be 'full' or 'mask'")
-        if fetch == "full":
-            raise ValueError(
-                "fetch='full' (the full-channel device frontend, "
-                "KernelFedStream) is not ported yet (ROADMAP Queue 1 item "
-                "8); use fetch='mask'"
-            )
         if k_chunks & (k_chunks - 1):
             raise ValueError("k_chunks must be a power of two")
         self._dev = resolve_device(device)
@@ -335,13 +482,21 @@ class CudaStreamFarm:
         self._segments_explicit = segments is not None
         if segments is None:
             segments = 1
-            while (segments * 2 <= 16
-                   and segments * 4 <= k_chunks
-                   and n_streams * segments * 2 <= LANES):
-                segments *= 2
+            if fetch == "mask":
+                while (segments * 2 <= 16
+                       and segments * 4 <= k_chunks
+                       and n_streams * segments * 2 <= LANES):
+                    segments *= 2
         else:
             if segments < 1 or segments & (segments - 1):
                 raise ValueError("segments must be a power of two >= 1")
+            if segments > 1 and fetch != "mask":
+                # nfclab's farm ignores it; here it is refused
+                raise ValueError(
+                    f"segments={segments} needs fetch='mask': the full "
+                    "fetch runs one chunk a feed and has no windows to "
+                    "segment"
+                )
             if segments > 1 and (k_chunks % segments
                                  or n_streams * segments > LANES):
                 raise ValueError(
@@ -370,9 +525,13 @@ class CudaStreamFarm:
         # stream's FSM thresholds (single source of truth)
         th = decoder_kwargs.get("thresholds") or DecoderThresholds()
         decoder_kwargs["thresholds"] = th
-        self._mp = chained_mask_params(power_level_threshold, th)
+        if fetch == "mask":
+            self._mp = chained_mask_params(power_level_threshold, th)
+        else:
+            self._mp = th.detect_mask_tuple(power_level_threshold)
+        cls = MaskFedStream if fetch == "mask" else KernelFedStream
         self.streams = [
-            MaskFedStream(
+            cls(
                 sample_rate,
                 window=window,
                 power_level_threshold=power_level_threshold,
@@ -400,11 +559,12 @@ class CudaStreamFarm:
             self.segments = 1
         self._state = None
         self._clock = 0
-        self._pipe = _DispatchPipeline(pipeline_depth)
+        self._pipe = _DispatchPipeline(pipeline_depth)  # mask-mode pipeline
         # the IO thread's CUDA stream: the dispatch never shares the
         # default stream with the caller's own device work
         self._stream = (torch.cuda.Stream(self._dev)
-                        if self._dev.type == "cuda" else None)
+                        if self._dev.type == "cuda" and fetch == "mask"
+                        else None)
         # stage accounting (seconds + dispatch count): device_s is the
         # background upload+dispatch+fetch time, walk_s the host walk time;
         # in steady state the pipeline overlaps them so wall ~= max, not sum
@@ -427,17 +587,24 @@ class CudaStreamFarm:
 
     def feed(self, blocks: np.ndarray) -> list[list[Frame]]:
         blocks = np.ascontiguousarray(blocks, np.float32)
-        if blocks.shape[0] != self.n_streams:
+        n_s, width = blocks.shape
+        if n_s != self.n_streams:
             raise ValueError(f"expected {self.n_streams} stream rows")
-        # any feed width is fine: dispatches always consume
-        # k*CHAIN_CHUNK columns (multiples of the fold modulus), and the
-        # sub-chunk remainder at finish() walks on the host path.  COPY at
-        # staging: consumption (upload + the deferred pipelined walk)
-        # happens up to k_chunks feeds later, and callers legitimately
-        # reuse their feed buffer every call
-        self._pipe.stage(blocks.copy())
-        self._launch_ready()
-        return self._drain(block=False)
+        if self.fetch == "mask":
+            # any feed width is fine: dispatches always consume
+            # k*CHAIN_CHUNK columns (multiples of the fold modulus), and
+            # the sub-chunk remainder at finish() walks on the host path.
+            # COPY at staging: consumption (upload + the deferred
+            # pipelined walk) happens up to k_chunks feeds later, and
+            # callers legitimately reuse their feed buffer every call
+            self._pipe.stage(blocks.copy())
+            self._launch_ready()
+            return self._drain(block=False)
+        from ..dsp.fused_frontend import TILE
+
+        if width % TILE:
+            raise ValueError(f"chunk must be a multiple of {TILE}")
+        return self._feed_full(blocks)
 
     # --------------------------------------------------- mask-mode pipeline
 
@@ -591,30 +758,78 @@ class CudaStreamFarm:
         self._pipe.drain(walk, block, on_wait)
         return out
 
+    # ----------------------------------------------------- full fetch mode
+
+    def _feed_full(self, blocks: np.ndarray) -> list[list[Frame]]:
+        """Both kernels over the live rows, every output selected, at the
+        folded kernel base; one dense transfer of the 15 outputs; then
+        each stream's walk on the caller's thread."""
+        import time
+
+        from ..dsp import fused_frontend as ff
+        from ..dsp.cuda_channels import (
+            _fetch_dense, chain_state0, upload_samples,
+        )
+
+        t0 = time.perf_counter()
+        n_s, chunk = blocks.shape
+        plan = ff.kernel_plan(self.sample_rate)
+        if self._state is None:
+            self._state = chain_state0(n_s, sample_rate=self.sample_rate,
+                                       device=self._dev)
+        names = ff._normalize_select(
+            (*_COND_KEYS, *box_keys(self.sample_rate), "detect_mask"), plan
+        )
+        x = upload_samples(blocks, self._dev).t().contiguous()
+        res, st = ff.run_chunk(x, self._state.t().contiguous(),
+                               self._kernel_base(), self._pt, self._mp,
+                               plan, names)
+        del x
+        self._state = st.t().contiguous()
+        self._clock += chunk
+        self.stats["drained_samples"] += chunk * n_s
+        fetch = _fetch_dense(res, names, n_s)
+        del res
+        t1 = time.perf_counter()
+        self.stats["device_s"] += t1 - t0
+        self.stats["dispatches"] += 1
+
+        out = []
+        for i, st in enumerate(self.streams):
+            cond = {k: fetch[k][i] for k in _COND_KEYS}
+            boxes = {k: fetch[k][i] for k in box_keys(self.sample_rate)}
+            out.append(
+                st.feed_external(blocks[i], cond, boxes,
+                                 fetch["detect_mask"][i])
+            )
+        self.stats["walk_s"] += time.perf_counter() - t1
+        return out
+
     def finish(self) -> list[list[Frame]]:
         from ..dsp.cuda_channels import CHAIN_CHUNK
 
         out = [[] for _ in self.streams]
-        # flush staged windows in power-of-two chunk dispatches
-        while self._pipe.staged_len >= CHAIN_CHUNK:
-            k = 1
-            while (k * 2 <= self.k_chunks
-                   and k * 2 * CHAIN_CHUNK <= self._pipe.staged_len):
-                k *= 2
-            self._submit(self._pipe.take(k * CHAIN_CHUNK))
-        for i, new in enumerate(self._drain(block=True)):
-            out[i].extend(new)
-        if self._pipe.staged_len:
-            # sub-chunk tail: host path (the kernel-fed index entries
-            # host-extend past the kernel-appended range -- fx
-            # descriptors in LazyChannels)
-            tail = self._pipe.take(self._pipe.staged_len)
-            for i, st in enumerate(self.streams):
-                out[i].extend(st.feed(tail[i]))
-        self._pipe.shutdown()
-        if self._walk_pool is not None:
-            self._walk_pool.shutdown()
-            self._walk_pool = None
+        if self.fetch == "mask":
+            # flush staged windows in power-of-two chunk dispatches
+            while self._pipe.staged_len >= CHAIN_CHUNK:
+                k = 1
+                while (k * 2 <= self.k_chunks
+                       and k * 2 * CHAIN_CHUNK <= self._pipe.staged_len):
+                    k *= 2
+                self._submit(self._pipe.take(k * CHAIN_CHUNK))
+            for i, new in enumerate(self._drain(block=True)):
+                out[i].extend(new)
+            if self._pipe.staged_len:
+                # sub-chunk tail: host path (the kernel-fed index entries
+                # host-extend past the kernel-appended range -- fx
+                # descriptors in LazyChannels)
+                tail = self._pipe.take(self._pipe.staged_len)
+                for i, st in enumerate(self.streams):
+                    out[i].extend(st.feed(tail[i]))
+            self._pipe.shutdown()
+            if self._walk_pool is not None:
+                self._walk_pool.shutdown()
+                self._walk_pool = None
         for i, st in enumerate(self.streams):
             out[i].extend(st.finish())
         return out

@@ -6,11 +6,12 @@
   ``functools.partial`` of ``condition_jax`` with ``device="cpu"`` and
   blocks of 16384, so a template spans several blocks);
 - ``decode_batch`` (``pool="thread"``, ``device="cpu"``) over WAVs of the
-  templates, with ``conditioner="jax"`` and with ``frontend="mask"``,
-  gives the native frames per path; the parts not ported yet raise;
+  templates, with ``conditioner="jax"``, with ``frontend="mask"`` and with
+  ``frontend="fused"`` (both conditioners), gives the native frames per
+  path;
 - the CLI's ``run --json --conditioner jax --device cpu`` prints what
   nfclab's ``run --json`` prints, and ``bench_cli --device cpu`` prints
-  its JSON line;
+  its JSON lines (also ``--frontend fused --conditioner device``);
 - no card and no ``device="cpu"``: an error, never a CPU run.
 """
 
@@ -108,18 +109,30 @@ def test_decode_batch_jax_and_mask_equal_native(wavs, cpu_conditioner,
 
 
 def test_decode_batch_refusals(wavs, monkeypatch):
+    """frontend="fused" gives the native frames with both conditioners:
+    channels from the block layout and triggers from the chained engine
+    with native conditioning, and everything from the chained
+    full-channel runner with conditioner="device".  Without a card every
+    device path raises."""
     import nfclab_torch.runtime.batch as batch
     from nfclab_torch.dsp.cuda_channels import DeviceUnavailable
 
+    want = batch.decode_batch(wavs, conditioner="native", pool="thread")
     for kw in ({"frontend": "fused"}, {"frontend": "fused",
                                        "conditioner": "device"}):
-        with pytest.raises(ValueError, match="Queue 1 item 8"):
-            batch.decode_batch(wavs, device="cpu", **kw)
+        got = batch.decode_batch(wavs, pool="thread", device="cpu", **kw)
+        assert list(got) == wavs
+        for p in wavs:
+            assert got[p], (kw, p)
+            assert _lines(got[p]) == _lines(want[p]), (kw, p)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         batch.decode_batch(wavs)                   # conditioner="jax"
     with pytest.raises(DeviceUnavailable):
         batch.decode_batch(wavs, frontend="mask")
+    for cond in ("native", "device"):
+        with pytest.raises(DeviceUnavailable):
+            batch.decode_batch(wavs, frontend="fused", conditioner=cond)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     assert not batch._fork_ok()
 
@@ -168,3 +181,32 @@ def test_bench_cli_frontend_line(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["--batch", "4", "--span", "4096", "--reps", "1"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_decode_batch_fused_refuses_mixed_rates(wavs, tmp_path):
+    """nfclab's error for captures of different sample rates."""
+    from nfclab_torch.io.wav import write_wav
+    from nfclab_torch.runtime.batch import decode_batch
+
+    other = str(tmp_path / "other_rate.wav")
+    write_wav(other, TEMPLATES[0].samples, 5_000_000)
+    for cond in ("native", "device"):
+        with pytest.raises(ValueError, match="uniform sample rate"):
+            decode_batch([wavs[0], other], frontend="fused",
+                         conditioner=cond, device="cpu")
+
+
+def test_bench_cli_fused_device_conditioner_line(wavs, capsys):
+    """bench_cli --frontend fused --conditioner device prints its decode
+    JSON line (the full-channel frontend on the CPU's plain kernels)."""
+    from nfclab_torch.apps.bench_cli import main
+
+    assert main(["--device", "cpu", "--no-kernel", "--decode", wavs[3],
+                 "--frontend", "fused", "--conditioner", "device",
+                 "--pool", "thread"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["metric"] == "end_to_end_decode_samples_per_second"
+    assert rec["frontend"] == "fused" and rec["device"] == "cpu"
+    assert rec["captures"] == 1 and rec["frames"] > 0 and rec["value"] > 0

@@ -1,5 +1,6 @@
 """The port's decode CLI: `run --frontend mask --device cpu` prints the
-lines nfclab's CLI prints, `test` passes against a golden nfclab wrote,
+lines nfclab's CLI prints, `run --frontend fused --device cpu` the lines
+of `--frontend host`, `test` passes against a golden nfclab wrote,
 multi-channel captures are refused, and --device cuda without a card is an
 error, not a silent CPU run."""
 
@@ -61,6 +62,24 @@ def test_run_mask_prints_nfclab_lines(wav, ref_env):
     lines = port.stdout.splitlines()
     assert len(lines) >= 4
     assert lines == ref.stdout.splitlines()
+
+
+def test_run_fused_prints_host_lines(wav, capsys, monkeypatch):
+    """--frontend fused (conditioning, channels and mask from the fused
+    kernels' plain versions) prints the --frontend host lines; without a
+    card it is an error."""
+    from nfclab_torch.apps.decode_cli import main
+
+    assert main(["run", "--json", "--frontend", "host", str(wav)]) == 0
+    host = capsys.readouterr().out.splitlines()
+    assert main(["run", "--json", "--frontend", "fused", "--device", "cpu",
+                 str(wav)]) == 0
+    fused = capsys.readouterr().out.splitlines()
+    assert len(host) >= 4
+    assert fused == host
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(["run", "--frontend", "fused", str(wav)]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_test_mask_passes_nfclab_golden(wav, tmp_path, ref_env):

@@ -31,6 +31,7 @@ COPIED_FUNCTIONS = [
     ("dsp/conditioner.py", "_edge_tracker"),
     ("dsp/frontend.py", "_params_tuple"),
     ("dsp/frontend.py", "_default_corr_thresholds"),
+    ("runtime/farm.py", "KernelFedStream"),
     ("runtime/farm.py", "_init_idx_entries"),
     ("runtime/farm.py", "_append_mask_idx"),
     ("runtime/farm.py", "_append_sparse_idx"),

@@ -284,9 +284,9 @@ def test_farm_segmented_backoff_matches_nfclab(ref_native, small_chunk):
 
 
 def test_farm_real_engines_give_host_frames(small_chunk):
-    """CudaStreamFarm(device="cpu", k_chunks=4, segments=2) over one
-    stream of each template with the real engines (the kernels' plain
-    versions): the first window serial, three segmented windows (with
+    """CudaStreamFarm(fetch="mask", device="cpu", k_chunks=4, segments=2)
+    over one stream of each template with the real engines (the kernels'
+    plain versions): the first window serial, three segmented windows (with
     repairs), a pow2 flush and a host tail; every stream's frames equal
     the host streaming decoder's and carry the synthesizer's bytes."""
     from nfclab_torch.core.frame import FrameType
@@ -296,8 +296,8 @@ def test_farm_real_engines_give_host_frames(small_chunk):
     lanes = [torch_synth.lane(tp, n, seed=50 + i)
              for i, tp in enumerate(TEMPLATES)]
     sigs = [x for x, _ in lanes]
-    farm = CudaStreamFarm(len(sigs), RATE, k_chunks=4, segments=2,
-                          device="cpu")
+    farm = CudaStreamFarm(len(sigs), RATE, fetch="mask", k_chunks=4,
+                          segments=2, device="cpu")
     frames = _drive(farm, sigs, 5000)
     st = farm.stats
     assert st["dispatches"] == 4 and st["seg_dispatches"] == 3
@@ -342,10 +342,23 @@ def test_farm_without_a_card_raises(monkeypatch):
 
 
 def test_farm_full_fetch_names_queue_item():
-    from nfclab_torch.runtime.farm import CudaStreamFarm
+    """fetch="full" (the default) builds KernelFedStream rows with the
+    unmargined mask params and no segments; it refuses an explicit
+    segments > 1, which nfclab's farm ignores, and any other fetch is
+    refused."""
+    from nfclab_torch.core.thresholds import DecoderThresholds
+    from nfclab_torch.runtime.farm import CudaStreamFarm, KernelFedStream
 
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        CudaStreamFarm(4, RATE, fetch="full", device="cpu")
+    for kw in ({"fetch": "full"}, {}, {"fetch": "full", "segments": 1}):
+        farm = CudaStreamFarm(4, RATE, device="cpu", **kw)
+        assert farm.fetch == "full" and farm.segments == 1
+        assert len(farm.streams) == 4
+        assert all(type(st) is KernelFedStream for st in farm.streams)
+        assert farm._mp == DecoderThresholds().detect_mask_tuple(0.01)
+    for seg in (2, 16):
+        with pytest.raises(ValueError, match="needs fetch='mask'"):
+            CudaStreamFarm(4, RATE, fetch="full", segments=seg,
+                           device="cpu")
     with pytest.raises(ValueError, match="fetch must be"):
         CudaStreamFarm(4, RATE, fetch="dense", device="cpu")
 
@@ -361,8 +374,8 @@ def test_farm_dispatch_error_surfaces_and_recovers(small_chunk, monkeypatch):
         raise RuntimeError("launch failed")
 
     monkeypatch.setattr(cc, "run_chained_masks", fail)
-    farm = CudaStreamFarm(2, RATE, k_chunks=4, segments=1, pipeline_depth=1,
-                          device="cpu")
+    farm = CudaStreamFarm(2, RATE, fetch="mask", k_chunks=4, segments=1,
+                          pipeline_depth=1, device="cpu")
     x = np.arange(2 * 9 * CHUNK, dtype=np.float32).reshape(2, -1)
     with pytest.raises(RuntimeError, match="launch failed"):
         for off in range(0, x.shape[1], CHUNK):
