@@ -128,12 +128,33 @@ Phases (any failure raises and the script exits non-zero):
    kernels' counts set to 0 just before it: launches per window, the
    farm's segmented windows, repairs and backoff windows, peak memory,
    and the ms of both kernels over one chunk at B = 1 and B = 4.
+12. The ISO7816 logic path (no kernel of its own: logic_event_mask is
+   torch operations on the card) on seeded torch_logic_synth lanes at 24
+   MS/s with a 4 MHz card clock: (a) logic_event_mask at the logic farm's
+   window, [32, 1,048,576, 4] float32, over two windows with the carry
+   threaded, bit for bit against device="cpu" on 4 streams and on a
+   block of special values; CUDA event ms per call, its bytes bound (17 B
+   a sample), peak memory over the input's bytes, the CUDA kernels of one
+   call (torch.profiler); (b) one 2**24-sample lane through
+   StreamingIsoDecoder with the device and the host frontend, fed 65,536
+   at a time: equal frames and index sets, equal to the one-shot
+   IsoDecoder's and the synthesizer's bytes; samples/s of each; (c)
+   CudaLogicFarm(32, 24 MS/s) over 32 lanes (seeds 5000-5031) of
+   4,194,304 samples, fed 262,144 at a time through one reused buffer,
+   plain and with the probes permuted under a channel_map: each stream's
+   frames equal its lane's one-shot frames and the synthesizer's bytes;
+   wall time, samples/s, the IO thread's dispatch seconds and the
+   caller's walk seconds (timed from outside the farm), peak memory; (d)
+   decode_cli run --json --channel-map on a probe-permuted 8-bit logic WAV
+   and decode_cli live logictcp://... in a subprocess against the port's
+   MockLogicTcpServer on (b)'s lane: the one-shot decoder's frames, no
+   sample lost, samples/s against real time.
 At the end neither JAX nor nfclab may have been imported.  The line
 before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel, the one before that the farm's
 launch counts, the one before that the full-channel path's launch
-counts, and the one before that the live path's readings.  The last line
-is {"ok": true, "device": {...}}.
+counts, the one before that the live path's readings and the one before
+that the logic path's.  The last line is {"ok": true, "device": {...}}.
 --kernels-only stops after phase 2, for a first call after a kernel
 change.
 """
@@ -2375,6 +2396,366 @@ def run_live_phase(templates):
     return out
 
 
+LOGIC_RATE = 24_000_000   # phase 12: the logic tests' rate, 4 MHz card clock
+LOGIC_STREAMS = 32        # 12c: CudaLogicFarm's streams
+LOGIC_WINDOW = 1 << 20    # TpuLogicFarm's default k_samples
+LOGIC_LANE = 4 * LOGIC_WINDOW   # 12c: 175 ms of capture a stream
+LOGIC_ONE = 1 << 24       # 12b and 12d's live run: one stream, 0.70 s
+LOGIC_BLOCK = 65536       # 12b: LogicSourceTask's block
+LOGIC_FEED = 262_144      # 12c: samples a feed
+LOGIC_SEED = 5000         # 12c: lanes 5000-5031; 12b and 12d: 5100
+LOGIC_WIRING = [1, 2, 0, 3]     # probes carry [clk, rst, io, vcc]
+LOGIC_CMAP = {"io": 2, "clk": 0, "rst": 1, "vcc": 3}
+LOGIC_BYTES = 17          # a sample of the mask: 4 float32 in, 1 byte out
+
+
+def _iso_data(frames):
+    """The bytes of the ATR, PPS, TPDU and T=1 block frames, in order."""
+    from nfclab_torch.core.frame import FrameType
+
+    keep = {int(t) for t in (FrameType.IsoATRFrame, FrameType.IsoRequestFrame,
+                             FrameType.IsoResponseFrame,
+                             FrameType.IsoExchangeFrame)}
+    return [f.data for f in frames if f.frame_type in keep]
+
+
+def _iso_oneshot(x, sent, what):
+    """The one-shot IsoDecoder's frames of x, which must carry the
+    synthesizer's bytes."""
+    from nfclab_torch.runtime.logic_decoder import IsoDecoder
+
+    frames = IsoDecoder().decode(x, LOGIC_RATE)
+    if _iso_data(frames) != sent or not sent:
+        raise AssertionError(f"{what}: one-shot frames != synthesized bytes")
+    return _frames_key(frames)
+
+
+def run_logic_mask(lanes):
+    """12a: logic_event_mask on the card at the farm's window, [32,
+    LOGIC_WINDOW, 4] float32, over the lanes' first two windows with the
+    carry threaded, bit for bit against device="cpu" on 4 of the streams
+    (and on a block of special values: -0.0, NaN, +-inf, fractions); CUDA
+    event ms per call on the second window, its bytes bound, peak memory
+    over the input's bytes and the CUDA kernels one call launches
+    (torch.profiler)."""
+    import collections
+    import re
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nfclab_torch.dsp.logic_frontend import logic_event_mask
+
+    w = LOGIC_WINDOW
+    chunks = [np.stack([x[k * w : (k + 1) * w] for x, _ in lanes])
+              for k in (0, 1)]
+    got, carries, carry = [], [], None
+    for c in chunks:
+        m, carry = logic_event_mask(c, carry)
+        got.append(m.cpu())
+        carries.append(carry)
+    want, cc = [], None
+    for c in chunks:
+        m, cc = logic_event_mask(c[:4], cc, device="cpu")
+        want.append(m)
+    for k in (0, 1):
+        if not torch.equal(got[k][:4], want[k]):
+            raise AssertionError(f"logic mask chunk {k} != device='cpu'")
+    if not torch.equal(carry[:4].cpu(), cc):
+        raise AssertionError("logic mask carry != device='cpu'")
+    rng = np.random.default_rng(LOGIC_SEED)
+    levels = np.array([0, 1, -0.0, 0.5, 0.9921875, np.nan, np.inf, -np.inf],
+                      np.float32)
+    sp = rng.choice(levels, (4, 65536, 8)).astype(np.float32)
+    a, ca = logic_event_mask(sp[:, :40_000])
+    b, cb = logic_event_mask(sp[:, 40_000:], ca)
+    ref, rc = logic_event_mask(sp, device="cpu")
+    if not (torch.equal(torch.cat([a, b], 1).cpu(), ref)
+            and torch.equal(cb.cpu().isnan(), rc.isnan())
+            and torch.equal(cb.cpu().nan_to_num(), rc.nan_to_num())):
+        raise AssertionError("logic mask on special values != device='cpu'")
+    nonzero = int((got[0] != 0).sum() + (got[1] != 0).sum())
+    del got, want, a, b
+
+    x = torch.from_numpy(chunks[1]).cuda()
+    c0 = carries[0]
+    del chunks, carries
+    ms = _event_ms(lambda: logic_event_mask(x, c0), 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logic_event_mask(x, c0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logic_event_mask(x, c0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    # short names: the innermost functor (or copy) each kernel runs
+    short = collections.Counter(
+        (re.findall(r"\w+Functor\w*|direct_copy_kernel_cuda|"
+                    r"compare_scalar_kernel", k) or [k[:60]])[-1]
+        for k in kernels)
+    n = x.shape[0] * x.shape[1]
+    bound, by = _bound(LOGIC_BYTES * n, 0)
+    return {"shape": list(x.shape), "ms": ms, "bound_ms": bound,
+            "bound_by": by, "bound_share": bound / ms,
+            "samples_per_s": n / (ms * 1e-3),
+            "peak_work_bytes": peak, "input_bytes": x.numel() * 4,
+            "peak_over_input": (peak + x.numel() * 4) / (x.numel() * 4),
+            "kernels_per_call": len(kernels) if names else None,
+            "kernels": dict(short),
+            "nonzero_mask_samples": nonzero, "max_abs_err": 0.0}
+
+
+def run_logic_stream(x, sent, want):
+    """12b: one stream through StreamingIsoDecoder with the device and the
+    host frontend, fed LOGIC_BLOCK samples at a time: frames equal to each
+    other's, to the one-shot decoder's and to the synthesizer's bytes;
+    the four event index sets equal; samples/s of each."""
+    import numpy as np
+
+    from nfclab_torch.runtime.logic_decoder import StreamingIsoDecoder
+
+    out, decs = {}, {}
+    for fe in ("device", "host"):
+        dec = StreamingIsoDecoder(LOGIC_RATE, frontend=fe)
+        frames = []
+        t0 = time.perf_counter()
+        for off in range(0, len(x), LOGIC_BLOCK):
+            frames.extend(dec.feed(x[off : off + LOGIC_BLOCK]))
+        frames.extend(dec.finish())
+        dt = time.perf_counter() - t0
+        frames.sort(key=lambda f: (f.sample_start, f.sample_end))
+        if _frames_key(frames) != want or _iso_data(frames) != sent:
+            raise AssertionError(f"StreamingIsoDecoder(frontend={fe!r}) "
+                                 "frames != one-shot / synthesized")
+        decs[fe] = dec
+        out[fe] = {"wall_s": dt, "samples_per_s": len(x) / dt,
+                   "frames": len(frames)}
+    for k in ("io_edges", "io_falls", "line_edges", "clk_falls"):
+        if not np.array_equal(decs["device"]._idx[k].view(),
+                              decs["host"]._idx[k].view()):
+            raise AssertionError(f"12b: {k} device != host")
+    out["events"] = {k: int(decs["host"]._idx[k].n) for k in (
+        "io_edges", "io_falls", "line_edges", "clk_falls")}
+    out["samples"] = len(x)
+    return out
+
+
+def run_logic_farm(lanes, wants, channel_map=None):
+    """12c: CudaLogicFarm(LOGIC_STREAMS, LOGIC_RATE) over the lanes (probes
+    permuted by LOGIC_WIRING under a channel map), fed LOGIC_FEED samples
+    at a time through one reused buffer: each stream's frames equal its
+    lane's one-shot frames and the synthesizer's bytes.  Wall time,
+    samples/s, the seconds of the IO thread's upload + mask + fetch
+    (timed around the farm's _mask from outside), of the caller's walk
+    (its streams' feed calls) and peak device memory."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.runtime.farm import CudaLogicFarm
+
+    n_s, total = len(lanes), len(lanes[0][0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    farm = CudaLogicFarm(n_s, LOGIC_RATE, channel_map=channel_map)
+    disp, walk = [], [0.0]
+    mask = farm._mask
+
+    def timed_mask(batch):
+        t = time.perf_counter()
+        res = mask(batch)
+        disp.append((batch.shape[1], time.perf_counter() - t))
+        return res
+
+    farm._mask = timed_mask
+    for st in farm.streams:
+        def timed_feed(*a, _f=st.feed, **k):
+            t = time.perf_counter()
+            res = _f(*a, **k)
+            walk[0] += time.perf_counter() - t
+            return res
+        st.feed = timed_feed
+    cols = LOGIC_WIRING if channel_map else [0, 1, 2, 3]
+    frames = [[] for _ in lanes]
+    buf = np.empty((n_s, LOGIC_FEED, 4), np.float32)
+    t0 = time.perf_counter()
+    for off in range(0, total, LOGIC_FEED):
+        w = min(LOGIC_FEED, total - off)
+        for i, (x, _) in enumerate(lanes):
+            buf[i, :w] = x[off : off + w][:, cols]
+        for i, new in enumerate(farm.feed(buf[:, :w])):
+            frames[i].extend(new)
+    for i, new in enumerate(farm.finish()):
+        frames[i].extend(new)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_frames = 0
+    for i, fr in enumerate(frames):
+        fr.sort(key=lambda f: (f.sample_start, f.sample_end))
+        if _frames_key(fr) != wants[i] or _iso_data(fr) != lanes[i][1]:
+            raise AssertionError(f"logic farm stream {i} frames != one-shot "
+                                 "/ synthesized")
+        n_frames += len(fr)
+    n = n_s * total
+    return {"streams": n_s, "samples_a_stream": total,
+            "channel_map": channel_map, "wall_s": dt,
+            "samples_per_s": n / dt, "dispatches": len(disp),
+            "dispatch_widths": sorted({w for w, _ in disp}),
+            "dispatch_s": sum(s for _, s in disp), "walk_s": walk[0],
+            "frames": n_frames, "max_memory_allocated": peak}
+
+
+def logic_live_child(out_path, argv) -> int:
+    """decode_cli's main(argv) on a logic URI in this process with
+    observers on the bus: the wall time at which each raw block and each
+    frame is published, the tasks' statuses and the receiver's; written
+    to out_path as JSON.  Returns main's exit code."""
+    from nfclab_torch.apps import decode_cli
+    from nfclab_torch.runtime.subject import Subject
+
+    raw, frames, rec = [], [], {"statuses": []}
+
+    def on_raw(buf):
+        t = time.perf_counter()
+        if buf.valid:
+            raw.append((int(buf.offset), int(buf.elements), t))
+
+    def on_frame(f):
+        t = time.perf_counter()
+        if f is not None:
+            frames.append((int(f.sample_end), t))
+        else:
+            rec.setdefault("sentinel_t", t)
+
+    Subject.name("logic.signal.raw").subscribe(on_raw, replay=False)
+    Subject.name("logic.decoder.frame").subscribe(on_frame, replay=False)
+    Subject.name("logic.decoder.status").subscribe(rec["statuses"].append,
+                                                   replay=False)
+    rc = decode_cli.main(argv)
+    rec.update(rc=rc, raw=raw, frames=frames,
+               receiver=Subject.name("logic.receiver.status").value)
+    Path(out_path).write_text(json.dumps(rec))
+    return rc
+
+
+def run_logic_cli(x, sent, want):
+    """12d: (1) decode_cli run --json --channel-map on an 8-bit logic WAV of
+    a lane with its probes permuted (LOGIC_WIRING): the one-shot decoder's
+    frames of the WAV's samples, and the synthesizer's bytes; (2)
+    decode_cli live logictcp://... in a subprocess against the port's
+    MockLogicTcpServer serving x: the one-shot decoder's frames, no sample
+    lost; samples/s from the first raw block to the EOF sentinel, against
+    real time at LOGIC_RATE."""
+    import numpy as np
+
+    from nfclab_torch.io.wav import read_wav, write_wav
+    from nfclab_torch.runtime.logic_decoder import IsoDecoder
+    from torch_logic_synth import logic_lane
+    from torch_sdr_mocks import MockLogicTcpServer
+
+    out_dir = ROOT / "chiprun_out" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lane, lane_sent = logic_lane(LOGIC_LANE, LOGIC_SEED + 101)
+    wav = out_dir / "logic_permuted.wav"
+    write_wav(str(wav), np.ascontiguousarray(lane[:, LOGIC_WIRING]),
+              LOGIC_RATE, bits=8)
+    samples, _ = read_wav(str(wav))
+    wav_want = _frames_key(IsoDecoder(channel_map=LOGIC_CMAP).decode(
+        samples, LOGIC_RATE))
+    cmap = ",".join(f"{k}={v}" for k, v in LOGIC_CMAP.items())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "nfclab_torch.apps.decode_cli", "run",
+         "--json", "--channel-map", cmap, str(wav)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    run_s = time.perf_counter() - t0
+    wav.unlink()
+    if proc.returncode != 0:
+        raise AssertionError(f"decode_cli run (logic) failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    if lines != wav_want:
+        raise AssertionError("decode_cli run --channel-map lines != the "
+                             "one-shot decoder's")
+    got = IsoDecoder().decode(samples[:, np.argsort(LOGIC_WIRING)],
+                              LOGIC_RATE)
+    if _frames_key(got) != lines or _iso_data(got) != lane_sent:
+        raise AssertionError("decode_cli run (logic): frames != synthesized")
+    out = {"run": {"samples": len(lane), "lines": len(lines),
+                   "subprocess_s": run_s}}
+
+    rec_path = out_dir / "logic_live.json"
+    srv = MockLogicTcpServer(x, LOGIC_RATE)
+    argv = ["live", f"logictcp://127.0.0.1:{srv.port}", "--json",
+            "--no-settings", "--sample-rate", str(LOGIC_RATE),
+            "--timeout", "60"]
+    code = ("import sys, chip_smoke; sys.exit(chip_smoke.logic_live_child("
+            "sys.argv[1], sys.argv[2:]))")
+    proc = subprocess.run([sys.executable, "-c", code, str(rec_path), *argv],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=600)
+    srv.thread.join(timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"decode_cli live logictcp failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    rec = json.loads(rec_path.read_text())
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if lines != want:
+        raise AssertionError("decode_cli live logictcp lines != the one-shot "
+                             "decoder's")
+    if any(s.get("status") == "error" for s in rec["statuses"]):
+        raise AssertionError(f"live logic decoder: {rec['statuses'][-3:]}")
+    lost = (rec["receiver"] or {}).get("lost")
+    raw = np.array(rec["raw"], np.float64)
+    if lost != 0 or raw[:, 1].sum() != len(x):
+        raise AssertionError(f"live logic: samples lost ({lost}) or "
+                             f"missing ({raw[:, 1].sum()} of {len(x)})")
+    wall = rec["sentinel_t"] - raw[0, 2]
+    out["live"] = {"samples": len(x), "frames": len(lines),
+                   "raw_blocks": len(raw), "wall_s": wall,
+                   "samples_per_s": len(x) / wall,
+                   "realtime_x": len(x) / wall / LOGIC_RATE,
+                   "samples_lost": lost}
+    return out
+
+
+def run_logic_phase():
+    """Phase 12: the ISO7816 logic path on the card (12a-12d)."""
+    from torch_logic_synth import logic_lane
+
+    t0 = time.perf_counter()
+    lanes = [logic_lane(LOGIC_LANE, LOGIC_SEED + i)
+             for i in range(LOGIC_STREAMS)]
+    one, one_sent = logic_lane(LOGIC_ONE, LOGIC_SEED + 100)
+    built = time.perf_counter() - t0
+    out = {"card": card_line(), "build_lanes_s": built,
+           "12a": run_logic_mask(lanes)}
+    log(f"12a logic mask: {json.dumps(out['12a'])}")
+    t1 = time.perf_counter()
+    one_want = _iso_oneshot(one, one_sent, "12b lane")
+    wants = [_iso_oneshot(x, s, f"12c lane {i}")
+             for i, (x, s) in enumerate(lanes)]
+    out["oneshot_s"] = time.perf_counter() - t1
+    out["oneshot_samples_per_s"] = ((len(one) + LOGIC_STREAMS * LOGIC_LANE)
+                                    / out["oneshot_s"])
+    out["12b"] = run_logic_stream(one, one_sent, one_want)
+    log(f"12b one stream: {json.dumps(out['12b'])}")
+    out["12c"] = run_logic_farm(lanes, wants)
+    log(f"12c logic farm: {json.dumps(out['12c'])}")
+    out["12c_channel_map"] = run_logic_farm(lanes, wants, LOGIC_CMAP)
+    log(f"12c logic farm, channel map: {json.dumps(out['12c_channel_map'])}")
+    del lanes, wants
+    out["12d"] = run_logic_cli(one, one_sent, one_want)
+    log(f"12d logic CLI: {json.dumps(out['12d'])}")
+    return out
+
+
 def check_v2(dev, streams, chunk, errs, seed, timed=False):
     """fused_v2's kernels against their plain versions over two chunks of
     mixed lanes with carried state (clocks from 40): the two-kernel chain
@@ -2798,6 +3179,12 @@ def main(argv=None) -> int:
     live = run_live_phase(tpls)
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    # 12. the ISO7816 logic path
+    t0 = time.perf_counter()
+    logic = run_logic_phase()
+    logic["phase_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {logic['phase_s']:.1f} s")
+
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
                     "repair_ms": farm["repair"]["scan_kernel_ms"],
@@ -2863,6 +3250,7 @@ def main(argv=None) -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
     if loaded:
         raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"logic": logic}))
     log(json.dumps({"live": live}))
     log(json.dumps({"full_path": {
         "10a": full["10a"]["launches"],

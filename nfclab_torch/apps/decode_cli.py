@@ -6,8 +6,9 @@
 - ``nfclab-torch-decode run <wav...>``: print each decoded frame as a text
   line or compact JSON line (--json).
 - ``nfclab-torch-decode live <uri>``: live SDR capture (loopback, rtl_tcp,
-  SpyServer or a USB radio through the native bridge) decoded as it
-  streams, each frame printed as it completes.
+  SpyServer or a USB radio through the native bridge) or live
+  logic-analyzer capture (logicloop, logictcp, DSLogic, Sipeed) decoded as
+  it streams, each frame printed as it completes.
 
 ``--frontend host`` decodes on the host alone; ``--frontend mask`` takes
 the detect triggers from the fused frontend kernels (dsp.cuda_channels) on
@@ -21,8 +22,10 @@ back to the host frontend.  ``--conditioner jax``
 conditions on ``--device`` with the device conditioner
 (dsp.conditioner.condition_jax) instead of the C++ one; it combines with
 the host and mask frontends (the fused one conditions on the device
-anyway).  Multi-channel (ISO7816 logic) captures are not decoded by the
-port yet.
+anyway).  Multi-channel captures are logic-analyzer probes: they decode
+with the ISO7816 decoder (runtime.logic_decoder.IsoDecoder), the probes
+named by ``--channel-map``, as nfclab's CLI does; the radio options do not
+apply to them.
 """
 
 from __future__ import annotations
@@ -130,6 +133,20 @@ def _thresholds_from_args(args):
     return DecoderThresholds.from_protocol_config(proto)
 
 
+def _parse_channel_map(spec: str | None):
+    """--channel-map 'io=2,clk=0,rst=1,vcc=3' or '2,0,1,3' ([io,clk,rst,
+    vcc] physical probe indices)."""
+    if not spec:
+        return None
+    if "=" in spec:
+        out = {}
+        for part in spec.split(","):
+            k, _, v = part.partition("=")
+            out[k.strip().lower()] = int(v)
+        return out
+    return [int(x) for x in spec.split(",")]
+
+
 class UnsupportedCapture(Exception):
     """A capture the port cannot decode yet."""
 
@@ -139,10 +156,12 @@ def _decode(path: str, args) -> list[Frame]:
 
     samples, info = read_wav(path)
     if info.channels > 1:
-        raise UnsupportedCapture(
-            f"{path}: {info.channels}-channel capture (ISO7816 logic "
-            "probes); nfclab_torch decodes radio captures only so far"
-        )
+        # multi-channel capture = logic-analyzer probes -> ISO7816 decoder
+        # (nfclab routes these to IsoDecoder the same way)
+        from ..runtime.logic_decoder import IsoDecoder
+
+        dec = IsoDecoder(channel_map=_parse_channel_map(args.channel_map))
+        return dec.decode(samples, info.sample_rate)
     dec = NfcDecoder(
         enable_nfca=not args.disable_nfca,
         enable_nfcb=not args.disable_nfcb,
@@ -291,8 +310,10 @@ def reconcile_decoder(command_subject, desired: dict,
 def cmd_live(args) -> int:
     """Live capture + decode (app-rx's receiver role, main.cpp:189-345):
     a native-bridge SDR device streams into the incremental decoder; frames
-    print as they complete.  Exits 1 when the decoder task ends in error
-    (a failed dispatch of the mask frontend, say): frames stop there."""
+    print as they complete.  A logic-analyzer URI (hw.sdr.LOGIC_SCHEMES)
+    streams into the incremental ISO7816 decoder instead.  Exits 1 when the
+    decoder task ends in error (a failed dispatch of the mask frontend,
+    say): frames stop there."""
     import queue as _queue
 
     from ..hw.device import (
@@ -309,46 +330,55 @@ def cmd_live(args) -> int:
     )
     from ..runtime.subject import Subject
 
-    if args.uri.split("://")[0] in LOGIC_SCHEMES:
-        raise UnsupportedCapture(
-            f"{args.uri}: live logic-analyzer capture (ISO7816) is not "
-            "ported yet (ROADMAP Queue 1 item 12)"
-        )
     if args.monitor is not None:
         raise UnsupportedCapture(
             "--monitor needs the spectrum task and the monitor server, "
             "not ported yet (ROADMAP Queue 1 items 13 and 18)"
         )
-    config = {PARAM_SAMPLE_RATE: args.sample_rate}
-    if args.frequency:
-        config[PARAM_TUNE_FREQUENCY] = args.frequency
-    if args.gain is not None:
-        config[PARAM_GAIN_MODE] = 1
-        config[PARAM_GAIN_VALUE] = args.gain
-
     frames: "_queue.Queue" = _queue.Queue()
-    Subject.name("radio.decoder.frame").subscribe(frames.put, replay=False)
 
     def on_status(status):
         if status.get("status") == "error":
             frames.put(status)  # wakes the printing loop below
 
-    Subject.name("radio.decoder.status").subscribe(on_status, replay=False)
-    # DeviceUnavailable (main prints it) before any capture starts
-    decoder = RadioDecoderTask(
-        frontend=args.frontend,
-        device=args.device,
-        enable_nfca=not args.disable_nfca,
-        enable_nfcb=not args.disable_nfcb,
-        enable_nfcf=not args.disable_nfcf,
-        enable_nfcv=not args.disable_nfcv,
-        power_level_threshold=args.power_threshold,
-        thresholds=_thresholds_from_args(args),
-    )
-    source = LiveRadioSourceTask(
-        args.uri, config, duration_blocks=args.blocks,
-        reconnect=args.reconnect,
-    )
+    if args.uri.split("://")[0] in LOGIC_SCHEMES:
+        # live logic capture (logicloop / logictcp / dslogic / sipeed) ->
+        # streaming ISO7816 decoder (LogicDeviceTask+LogicDecoderTask role)
+        from ..runtime.pipeline import LiveLogicSourceTask, LogicDecoderTask
+
+        prefix = "logic.decoder"
+        source = LiveLogicSourceTask(
+            args.uri, {PARAM_SAMPLE_RATE: args.sample_rate},
+            duration_blocks=args.blocks,
+        )
+        decoder = LogicDecoderTask(
+            channel_map=_parse_channel_map(args.channel_map)
+        )
+    else:
+        config = {PARAM_SAMPLE_RATE: args.sample_rate}
+        if args.frequency:
+            config[PARAM_TUNE_FREQUENCY] = args.frequency
+        if args.gain is not None:
+            config[PARAM_GAIN_MODE] = 1
+            config[PARAM_GAIN_VALUE] = args.gain
+        prefix = "radio.decoder"
+        # DeviceUnavailable (main prints it) before any capture starts
+        decoder = RadioDecoderTask(
+            frontend=args.frontend,
+            device=args.device,
+            enable_nfca=not args.disable_nfca,
+            enable_nfcb=not args.disable_nfcb,
+            enable_nfcf=not args.disable_nfcf,
+            enable_nfcv=not args.disable_nfcv,
+            power_level_threshold=args.power_threshold,
+            thresholds=_thresholds_from_args(args),
+        )
+        source = LiveRadioSourceTask(
+            args.uri, config, duration_blocks=args.blocks,
+            reconnect=args.reconnect,
+        )
+    Subject.name(f"{prefix}.frame").subscribe(frames.put, replay=False)
+    Subject.name(f"{prefix}.status").subscribe(on_status, replay=False)
     # SIGTERM (systemd stop, `timeout`) should shut the capture chain down
     # like ^C: Python's default action kills the process mid-stream with
     # native reader threads still in recv(), which aborts at teardown
@@ -374,6 +404,7 @@ def cmd_live(args) -> int:
 
         store = SettingsStore(args.settings)
     desired = store.load().get("decoder", {}) if store else {}
+    file_desired = {}
     if args.config:
         # app-rx reconciliation: desired config file -> Query/diff/Configure.
         # Must complete BEFORE the source starts streaming: Configure takes
@@ -382,7 +413,13 @@ def cmd_live(args) -> int:
         with open(args.config, encoding="utf-8") as fh:
             file_desired = json.load(fh).get("decoder", {})
         desired = merge_patch(desired, file_desired) if store else file_desired
-    if desired:
+    if desired and not isinstance(decoder, RadioDecoderTask):
+        if file_desired:
+            # only warn about an EXPLICIT --config; silently skip stored
+            # radio settings on a logic session
+            print("# --config decoder section applies to radio capture",
+                  file=sys.stderr)
+    elif desired:
         snap = reconcile_decoder(
             Subject.name("radio.decoder.command"), desired
         )
@@ -407,7 +444,7 @@ def cmd_live(args) -> int:
     except (_queue.Empty, KeyboardInterrupt):
         pass
     finally:
-        if store is not None:
+        if store is not None and isinstance(decoder, RadioDecoderTask):
             # persist the decoder's final state (incl. any live Configure
             # changes) — QSettings-at-exit parity
             try:
@@ -460,6 +497,11 @@ def main(argv=None) -> int:
             help="where --frontend fused|mask and --conditioner jax run: "
             "cuda (the kernels) or cpu (their plain PyTorch versions)",
         )
+        p.add_argument(
+            "--channel-map", metavar="MAP",
+            help="ISO7816 probe wiring: 'io=2,clk=0,rst=1,vcc=3' or "
+            "'2,0,1,3' ([io,clk,rst,vcc] physical probe indices)",
+        )
         p.set_defaults(fn=fn)
     p = sub.add_parser("live", help="live SDR capture + decode")
     p.add_argument(
@@ -467,7 +509,9 @@ def main(argv=None) -> int:
         help="auto (hotplug-scan USB radios, attach when one appears) | "
              "auto://scheme1,scheme2 | "
              "loopback://test | rtltcp://host:port | spyserver://host:port "
-             "| airspy:// hydrasdr:// rtlsdr:// mirisdr:// (USB radio)",
+             "| airspy:// hydrasdr:// rtlsdr:// mirisdr:// (USB radio) "
+             "| logicloop://test | logictcp://host:port | dslogic:// | "
+             "sipeed:// (ISO7816)",
     )
     p.add_argument("--json", "-j", action="store_true")
     p.add_argument("--sample-rate", type=float, default=10_000_000)
@@ -488,6 +532,10 @@ def main(argv=None) -> int:
     p.add_argument(
         "--protocol-config", metavar="JSON",
         help="per-tech threshold config file (see 'run --protocol-config')",
+    )
+    p.add_argument(
+        "--channel-map", metavar="MAP",
+        help="ISO7816 probe wiring (see 'run --channel-map')",
     )
     p.add_argument(
         "--frontend", choices=("host", "mask"), default="host",

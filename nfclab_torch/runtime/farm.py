@@ -27,6 +27,10 @@ rate's plan modulus (every ring size divides it, and the fold keeps
 ring phases stay consistent forever while frame clocks remain absolute
 int64 on the host.
 
+``CudaLogicFarm`` is the counterpart of nfclab's ``TpuLogicFarm``: N
+logic-analyzer (ISO7816) streams, each window's event masks computed in
+one dispatch on the card (dsp/logic_frontend) on the same pipeline.
+
 ``KernelFedStream``, ``_init_idx_entries``, ``_append_mask_idx``,
 ``_append_sparse_idx``, ``_DispatchPipeline`` and ``MaskFedStream`` are
 copies of nfclab's (tests/test_torch_copies.py holds them to it).
@@ -830,6 +834,122 @@ class CudaStreamFarm:
             if self._walk_pool is not None:
                 self._walk_pool.shutdown()
                 self._walk_pool = None
+        for i, st in enumerate(self.streams):
+            out[i].extend(st.finish())
+        return out
+
+
+class CudaLogicFarm:
+    """Decode ``n_streams`` independent logic-analyzer streams (ISO7816):
+    batched dispatches on the card compute every stream's packed event
+    mask (dsp/logic_frontend, per-stream edge carry kept on the device);
+    the host walkers consume only the sparse event indices.
+
+    feed(blocks[n_streams, width, channels]) -> per-stream new frames.
+    The counterpart of nfclab's TpuLogicFarm, with the same pipeline:
+    feeds stage until ``k_samples`` accumulate, one dispatch computes the
+    whole window's masks, a single background IO thread owns upload +
+    mask + fetch, on a CUDA stream of the farm's own, while the caller's
+    thread walks the previous window (frames may surface up to
+    ``pipeline_depth`` windows late; finish() flushes).  ``k_samples=0``
+    dispatches synchronously per feed.  ``device="cpu"`` computes the
+    masks on the CPU; with no card and no ``device="cpu"`` the
+    constructor raises DeviceUnavailable."""
+
+    def __init__(
+        self,
+        n_streams: int,
+        sample_rate: int,
+        channels: int = 4,
+        stream_time: float = 0.0,
+        channel_map=None,
+        k_samples: int = 1 << 20,
+        pipeline_depth: int = 2,
+        device="cuda",
+    ):
+        from .logic_decoder import StreamingIsoDecoder, normalize_channel_map
+
+        self._dev = resolve_device(device)
+        self.n_streams = n_streams
+        self.channels = channels
+        self.k_samples = k_samples
+        self.pipeline_depth = pipeline_depth
+        # the farm permutes blocks BEFORE the batched device dispatch so
+        # the event masks are computed over the decoder layout; the streams
+        # then consume identity-mapped blocks + masks
+        self._perm = normalize_channel_map(channel_map, channels)
+        self.streams = [
+            StreamingIsoDecoder(
+                sample_rate, channels=channels, stream_time=stream_time
+            )
+            for _ in range(n_streams)
+        ]
+        self._carry = None
+        self._pipe = _DispatchPipeline(pipeline_depth)
+        # the mask's CUDA stream: the dispatch never shares the default
+        # stream with the caller's own device work
+        self._stream = (torch.cuda.Stream(self._dev)
+                        if self._dev.type == "cuda" else None)
+
+    def feed(self, blocks: np.ndarray) -> list[list[Frame]]:
+        blocks = np.ascontiguousarray(blocks, np.float32)
+        if blocks.ndim != 3 or blocks.shape[0] != self.n_streams or (
+            blocks.shape[2] != self.channels
+        ):
+            raise ValueError(
+                f"expected [{self.n_streams}, width, {self.channels}] blocks"
+            )
+        if self._perm is not None:
+            blocks = np.ascontiguousarray(blocks[:, :, self._perm])
+        if not self.k_samples:
+            mask = self._mask(blocks)
+            return [
+                st.feed(blocks[i], mask=mask[i])
+                for i, st in enumerate(self.streams)
+            ]
+        # COPY at staging (callers reuse feed buffers; the channel-map
+        # permute above already produced a private array when it ran)
+        self._pipe.stage(
+            blocks if self._perm is not None else blocks.copy()
+        )
+        while self._pipe.staged_len >= self.k_samples:
+            self._pipe.submit(self._mask, self._pipe.take(self.k_samples))
+        return self._drain(block=False)
+
+    def _mask(self, batch: np.ndarray) -> np.ndarray:
+        """Upload, mask and fetch one [n_streams, width, channels] batch on
+        the farm's stream; only the host mask leaves, after the stream's
+        work has ended."""
+        from ..dsp.logic_frontend import logic_event_mask
+
+        with torch.cuda.stream(self._stream):
+            x = torch.from_numpy(batch).to(self._dev)
+            mask, self._carry = logic_event_mask(x, self._carry)
+            mask = mask.cpu()
+            if self._stream is not None:
+                self._stream.synchronize()
+        return mask.numpy()
+
+    def _drain(self, block: bool) -> list[list[Frame]]:
+        out = [[] for _ in self.streams]
+
+        def walk(batch, mask):
+            for i, st in enumerate(self.streams):
+                out[i].extend(st.feed(batch[i], mask=mask[i]))
+
+        self._pipe.drain(walk, block)
+        return out
+
+    def finish(self) -> list[list[Frame]]:
+        out = [[] for _ in self.streams]
+        if self.k_samples:
+            if self._pipe.staged_len:
+                self._pipe.submit(
+                    self._mask, self._pipe.take(self._pipe.staged_len)
+                )
+            for i, new in enumerate(self._drain(block=True)):
+                out[i].extend(new)
+            self._pipe.shutdown()
         for i, st in enumerate(self.streams):
             out[i].extend(st.finish())
         return out

@@ -8,6 +8,8 @@ reference wire protocol:
     radio.signal.raw   magnitude blocks           -> decoder, resampler
     adaptive.signal    adaptive render stream     -> consumers, trace writer
     radio.decoder.frame                           decoded frames
+    logic.signal.raw   logic-analyzer blocks      -> logic decoder, resampler
+    logic.decoder.frame                           decoded ISO7816 frames
     <task>.status / <task>.command                control plane
 
 The radio decoder is incremental: each signal block feeds the streaming
@@ -22,7 +24,10 @@ RadioDecoderTask and _MaskLiveDecoder are ported.  Unlike nfclab's, the
 mask frontend never falls back to the host frontend: a missing card
 raises DeviceUnavailable when the task is built, and a failed dispatch
 propagates, so Executor's fence publishes the task's "error" status.
-The logic-analyzer tasks and FourierTask are not ported yet.
+The logic-analyzer tasks (LogicDecoderTask, LogicSourceTask,
+LiveLogicSourceTask) are copies too: the live ISO7816 decoder runs
+StreamingIsoDecoder's host frontend, as nfclab's does.  FourierTask is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -572,6 +577,84 @@ class _MaskLiveDecoder:
         return self._farm.finish()[0]
 
 
+class LogicDecoderTask(Task):
+    """logic.signal.raw -> logic.decoder.frame (LogicDecoderTask parity).
+
+    Truly streaming: each logic block feeds the incremental ISO7816 decoder
+    and completed frames publish immediately (the live DSLogic case)."""
+
+    def __init__(self, channel_map=None):
+        super().__init__("worker.LogicDecoder", "logic.decoder")
+        # probe->role mapping (the reference LogicDecoderTask's channel
+        # config): dict io/clk/rst/vcc or [io, clk, rst, vcc] probe indices
+        self.channel_map = channel_map
+        self.frame_stream = Subject.name("logic.decoder.frame")
+        self.signal_queue: "queue.Queue[SignalBuffer]" = queue.Queue()
+        Subject.name("logic.signal.raw").subscribe(
+            self.signal_queue.put, replay=False
+        )
+
+    def _on_configure(self, params: dict):
+        """LogicDecoderTask Configure parity: the channel map (applies from
+        the next decode session)."""
+        if "channelMap" in params:
+            self.channel_map = params["channelMap"]
+
+    def _command_snapshot(self) -> dict:
+        return {
+            "status": "streaming" if self.streaming else "idle",
+            "channelMap": self.channel_map,
+        }
+
+    def _on_clear(self):
+        # LogicDecoderTask.cpp:117 Clear parity: drop pending logic buffers
+        self._drain(self.signal_queue)
+
+    def run(self):
+        from .logic_decoder import StreamingIsoDecoder
+
+        self.update_status("streaming")
+        dec: StreamingIsoDecoder | None = None
+
+        def flush(d):
+            if d is not None:
+                for frame in d.finish():
+                    self.frame_stream.next(frame)
+            self.frame_stream.next(None)
+
+        while not self.terminated:
+            self.handle_commands()
+            if self._stop_flush:  # Stop ends the current decode session
+                self._stop_flush = False
+                if dec is not None:
+                    flush(dec)
+                    dec = None
+            try:
+                buf = self.signal_queue.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if not buf.valid:  # in-band EOF: flush + await the next session
+                flush(dec)
+                dec = None
+                self.update_status("idle")
+                continue
+            if not self.streaming:
+                continue  # Stopped: drop buffers (reference gating)
+            block = np.asarray(buf.data, np.float32)
+            if dec is None:
+                dec = StreamingIsoDecoder(
+                    buf.sample_rate, channels=block.shape[1],
+                    channel_map=self.channel_map,
+                )
+                self.update_status("streaming")
+            for frame in dec.feed(block):
+                self.frame_stream.next(frame)
+            self.throughput.update(len(block))
+        if dec is not None:
+            flush(dec)
+        self.update_status("complete")
+
+
 class ResamplingTask(Task):
     """radio/logic raw -> adaptive.signal (SignalResamplingTask parity)."""
 
@@ -649,6 +732,114 @@ class DeviceMonitorTask(Task):
                 self.update_status("detached", device=ident)
             self.present = found
             self._terminated.wait(self.interval)
+
+
+class LogicSourceTask(Task):
+    """Replay source for logic captures: WAV -> logic.signal.raw
+    (LogicDeviceTask parity; live DSLogic/Sipeed capture plugs in behind the
+    same Device interface)."""
+
+    def __init__(self, device: RecordDevice, block: int = 65536):
+        super().__init__("worker.LogicSource", "logic.receiver")
+        self.device = device
+        self.block = block
+        self.raw_stream = Subject.name("logic.signal.raw")
+
+    def run(self):
+        self.device.open("read")
+        self.update_status("streaming")
+        rate = 0
+        while not self.terminated and not self.device.is_eof():
+            self.handle_commands()
+            if not self.streaming:  # Stop command: pause the replay
+                self._stop_flush = False
+                self._terminated.wait(0.05)
+                continue
+            buf = self.device.read(self.block)
+            rate = buf.sample_rate
+            self.raw_stream.next(buf)
+            self.throughput.update(buf.elements)
+        self.raw_stream.next(
+            SignalBuffer.eof(rate, SignalType.SIGNAL_TYPE_LOGIC_SAMPLES)
+        )
+        self.update_status("complete", samples=self.throughput.total)
+
+
+class LiveLogicSourceTask(Task):
+    """Live logic-analyzer capture -> logic.signal.raw.
+
+    Drives a native-bridge logic driver (logicloop / logictcp — the
+    stream-mode network transport shaped like DSLogicDevice.cpp:247-412's
+    bulk capture; a libusb DSLogic/Sipeed backend slots behind the same
+    driver table) via hw.sdr.NativeSdrDevice.  Blocks arrive as interleaved
+    probe floats and publish as [N, channels] logic sample buffers, feeding
+    the streaming ISO7816 decoder (LogicDeviceTask parity)."""
+
+    def __init__(self, ident: str, config: dict | None = None,
+                 duration_blocks: int | None = None):
+        super().__init__("worker.LiveLogicSource", "logic.receiver")
+        self.ident = ident
+        self.config = dict(config or {})
+        self.duration_blocks = duration_blocks
+        self.raw_stream = Subject.name("logic.signal.raw")
+        self.samples_lost = 0
+
+    def run(self):
+        from ..hw.device import PARAM_CHANNEL_COUNT, PARAM_SAMPLE_RATE
+        from ..hw.sdr import NativeSdrDevice
+
+        rate = 0
+        dev = NativeSdrDevice(self.ident)
+        if not dev.open():
+            self.update_status("absent")
+            self.raw_stream.next(
+                SignalBuffer.eof(0, SignalType.SIGNAL_TYPE_LOGIC_SAMPLES)
+            )
+            return
+        for param, value in self.config.items():
+            dev.set(param, value)
+        rate = int(dev.get(PARAM_SAMPLE_RATE, 10_000_000))
+        channels = int(dev.get(PARAM_CHANNEL_COUNT, 4))
+        dev.start()
+        self.update_status("streaming")
+        offset = 0
+        blocks = 0
+        carry = np.empty(0, np.float32)
+        while not self.terminated:
+            self.handle_commands()
+            if self._stop_flush:  # Stop command: end this capture session
+                break
+            block = dev.read(timeout=0.25)
+            if block is None:
+                continue
+            if len(block) == 0:  # driver EOF (server disconnect)
+                break
+            if len(carry):
+                block = np.concatenate([carry, block])
+            usable = len(block) - len(block) % channels
+            carry = block[usable:]
+            if not usable:
+                continue
+            data = block[:usable].reshape(-1, channels)
+            buf = SignalBuffer(
+                data, rate, offset,
+                signal_type=SignalType.SIGNAL_TYPE_LOGIC_SAMPLES,
+            )
+            offset += len(data)
+            self.raw_stream.next(buf)
+            self.throughput.update(len(data))
+            blocks += 1
+            if self.duration_blocks and blocks >= self.duration_blocks:
+                break
+        dev.stop()
+        dev.close()
+        self.samples_lost = dev.samples_lost
+        self.raw_stream.next(
+            SignalBuffer.eof(rate, SignalType.SIGNAL_TYPE_LOGIC_SAMPLES)
+        )
+        self.update_status(
+            "complete", samples=self.throughput.total, lost=self.samples_lost
+        )
 
 
 class SignalStorageTask(Task):

@@ -1,15 +1,14 @@
 """The port's decode CLI: `run --frontend mask --device cpu` prints the
 lines nfclab's CLI prints, `run --frontend fused --device cpu` the lines
-of `--frontend host`, `test` passes against a golden nfclab wrote,
-multi-channel captures are refused, and --device cuda without a card is an
-error, not a silent CPU run."""
+of `--frontend host`, `test` passes against a golden nfclab wrote, and
+--device cuda without a card is an error, not a silent CPU run.
+Multi-channel (logic) captures: tests/test_torch_logic_cli.py."""
 
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
@@ -101,16 +100,6 @@ def test_run_host_text_lines(wav, capsys):
     assert main(["run", str(wav)]) == 0
     out = capsys.readouterr().out.splitlines()
     assert any("NfcA" in ln and "POLL" in ln for ln in out)
-
-
-def test_multichannel_capture_exits_1(tmp_path, capsys):
-    from nfclab_torch.apps.decode_cli import main
-    from nfclab_torch.io.wav import write_wav
-
-    path = tmp_path / "logic.wav"
-    write_wav(str(path), np.zeros((4096, 4), np.float32), 1_000_000)
-    assert main(["run", "--frontend", "mask", str(path)]) == 1
-    assert "ISO7816" in capsys.readouterr().err
 
 
 def test_missing_file_exits_1(capsys):

@@ -8,6 +8,7 @@ import ast
 import difflib
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -28,6 +29,7 @@ COPIED = [
     "hw/__init__.py", "hw/signal.py", "hw/device.py", "hw/record.py",
     "hw/sdr.py",
     "dsp/magnitude.py", "dsp/resample.py", "io/trz.py",
+    "demod/iso7816.py",
 ]
 
 # functions and classes copied into modules that are ported, not copied,
@@ -53,6 +55,14 @@ COPIED_FUNCTIONS = [
     ("runtime/pipeline.py", "TraceReplayTask"),
     ("runtime/pipeline.py", "run_radio_pipeline"),
     ("apps/decode_cli.py", "reconcile_decoder"),
+    ("apps/decode_cli.py", "_parse_channel_map"),
+    ("runtime/logic_decoder.py", "normalize_channel_map"),
+    ("runtime/logic_decoder.py", "IsoDecoder"),
+    ("runtime/logic_decoder.py", "_GrowIdx"),
+    ("dsp/logic_frontend.py", "event_indices"),
+    ("runtime/pipeline.py", "LogicDecoderTask"),
+    ("runtime/pipeline.py", "LogicSourceTask"),
+    ("runtime/pipeline.py", "LiveLogicSourceTask"),
 ]
 
 # the port's native build is atomic: nfclab's writes the library in place,
@@ -174,3 +184,22 @@ def test_native_build_dir_is_the_ports():
     from nfclab_torch.native import build
 
     assert build.lib_path().parent == ROOT / "nfclab_torch" / "native" / "_build"
+
+
+def test_logic_synth_make_session_is_test_iso7816s():
+    """tests/torch_logic_synth.py's session builder (no nfclab import)
+    builds tests/test_iso7816.py's captures sample for sample."""
+    import test_iso7816
+    import torch_logic_synth
+
+    for kw in ({}, {"atr": (0x3B, 0x02, 0x41, 0x42)},
+               {"atr": (0x3B, 0x00),
+                "tpdu": [0x00, 0xA4, 0x04, 0x00, 0x02, 0xA4, 0x3F, 0x00,
+                         0x90, 0x00], "idle_tail": 1000}):
+        a = torch_logic_synth.make_session(**kw)
+        b = test_iso7816.make_session(**kw)
+        assert a.dtype == b.dtype and np.array_equal(a, b), kw
+    for name in ("SAMPLE_RATE", "CLOCK_HZ", "ETU_SAMPLES"):
+        assert getattr(torch_logic_synth, name) == getattr(test_iso7816, name)
+    assert (torch_logic_synth._t1_crc(b"\x00\x00\x02\xa4\x04")
+            == test_iso7816._t1_crc(b"\x00\x00\x02\xa4\x04"))

@@ -27,7 +27,9 @@ for name in names:
 import chip_smoke
 import torch_synth
 import torch_sdr_mocks
+import torch_logic_synth
 torch_synth.templates()
+torch_logic_synth.logic_lane(200_000, seed=0)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "experiments") and sys.modules[m] is not None
              or m.startswith("jax.") or m.startswith("jaxlib")
@@ -71,7 +73,10 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.experiments.fused_v2",
                  "nfclab_torch.experiments.bench_v2",
                  "nfclab_torch.runtime.pipeline",
-                 "nfclab_torch.hw.sdr"):
+                 "nfclab_torch.hw.sdr",
+                 "nfclab_torch.demod.iso7816",
+                 "nfclab_torch.dsp.logic_frontend",
+                 "nfclab_torch.runtime.logic_decoder"):
         assert need in mods
 
 
@@ -82,7 +87,8 @@ def test_port_sources_name_no_jax_or_nfclab_import():
 
     pat = re.compile(r"^\s*(from|import)\s+(jax|nfclab|experiments)(\.|\s|$)")
     files = list((ROOT / "nfclab_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sdr_mocks.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sdr_mocks.py",
+              ROOT / "tests" / "torch_logic_synth.py"]
     for f in files:
         for ln in f.read_text().splitlines():
             assert not pat.match(ln), f"{f}: {ln}"

@@ -6,8 +6,8 @@ CHAIN_CHUNK of tests/test_torch_live.py).
   --device cpu equal those of --frontend host and of nfclab's CLI, and the
   host streaming decoder's frames of the payload's magnitude.
 - Refusals, exit 1 with a message and no capture: --frontend mask without
-  a card and without --device cpu (DeviceUnavailable), a logic analyzer's
-  scheme, --monitor.
+  a card and without --device cpu (DeviceUnavailable), --monitor.  (The
+  logic analyzers' schemes decode: tests/test_torch_logic_cli.py.)
 - A dispatch that fails mid-session: exit 1 with the error, and no line
   after the frames decoded before it (no host fallback).
 - The mocks' pacing option.
@@ -161,19 +161,15 @@ def test_cli_rtltcp_8bit_mask_equals_host(small_chunk, capsys):
     assert len(polls) == 1 + 2
 
 
-@pytest.mark.parametrize("case", ["no_card", "logic_scheme", "monitor"])
+@pytest.mark.parametrize("case", ["no_card", "monitor"])
 def test_cli_live_refusals(case, monkeypatch, capsys):
     """Exit 1 with a message and no capture: --frontend mask without a card
-    and without --device cpu (DeviceUnavailable's message), a logic
-    analyzer's scheme (Queue 1 item 12) and --monitor (items 13, 18)."""
+    and without --device cpu (DeviceUnavailable's message) and --monitor
+    (Queue 1 items 13, 18)."""
     argv = [*LIVE, "loopback://test", "--frontend", "mask"]
     if case == "no_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         want = "CUDA is not available"
-    elif case == "logic_scheme":
-        argv[-3] = "logicloop://test"
-        argv += ["--device", "cpu"]
-        want = "Queue 1 item 12"
     else:
         argv += ["--device", "cpu", "--monitor", "0"]
         want = "items 13 and 18"

@@ -9,6 +9,9 @@ radio delivers them; None sends as fast as the socket takes them.
 - ``iq_int16(x)``: a magnitude capture as SpyServer INT16 IQ, I = the
   signal, Q = 0 (its magnitude is |I| / 32768).
 - ``iq_uint8(x)``: the same as rtl_tcp's unsigned 8-bit IQ, Q at mid-scale.
+
+``MockLogicTcpServer`` is a copy of tests/test_logic_capture.py's (the
+logictcp logic-analyzer wire format), unchanged.
 """
 
 from __future__ import annotations
@@ -206,3 +209,41 @@ class MockSpyServer:
                 raise ConnectionError("client closed")
             buf += part
         return buf
+
+
+class MockLogicTcpServer:
+    """Serves the logictcp wire format: 12-byte header ("LGC0" + u8
+    channels + 3 reserved + u32 BE sample rate), then one packed byte per
+    sample (bit i = probe i), then an orderly close."""
+
+    def __init__(self, capture: np.ndarray, sample_rate: int):
+        bits = (capture > 0.5).astype(np.uint8)
+        packed = np.zeros(len(bits), np.uint8)
+        for c in range(bits.shape[1]):
+            packed |= bits[:, c] << c
+        self.payload = packed.tobytes()
+        self.channels = capture.shape[1]
+        self.sample_rate = sample_rate
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        conn, _ = self.sock.accept()
+        conn.settimeout(10.0)
+        conn.sendall(
+            b"LGC0"
+            + bytes([self.channels, 0, 0, 0])
+            + struct.pack(">I", self.sample_rate)
+        )
+        conn.sendall(self.payload)
+        conn.shutdown(socket.SHUT_WR)
+        try:
+            conn.recv(1)  # wait for the client to finish
+        except OSError:
+            pass
+        conn.close()
+        self.sock.close()
