@@ -57,7 +57,7 @@ Phases (any failure raises and the script exits non-zero):
    streams x 65536 samples of the mask path's captures (time per call,
    samples/s, peak memory, conditioning launches per call), held against
    the same call on the CPU on 64 of the streams.
-7. The device conditioner on a long capture: condition_jax over 2**25
+7. The device conditioner on a long capture: condition_jax over 2**24
    samples of the templates with long field-off stretches, bit-exact
    against the C++ oracle with its repair count and the time of its host
    edge tracker (from its stats); then the conditioning
@@ -84,8 +84,9 @@ Phases (any failure raises and the script exits non-zero):
    lanes); (c) the same input with segments=1; (b) 16 streams with a
    200k-400k-sample field-off stretch across a segment boundary of every
    window after the first, with adaptive_segments False (repairs) and
-   True (backoff).  Frames equal the host StreamingNfcDecoder's, and on
-   (a) the synthesizer's bytes; (c)'s frames equal (a)'s and its
+   True (backoff); (c) runs the first 16 of (a)'s streams.  Frames equal
+   the host StreamingNfcDecoder's, and on (a) the synthesizer's bytes;
+   (c)'s frames equal (a)'s and its
    conditioning rows 0-4 after the last window equal (a)'s segmented
    carry bit for bit.  Wall time, samples/s, the farm's stats, launches
    per window (each run's counts set to 0 just before it) and peak memory.
@@ -103,7 +104,8 @@ Phases (any failure raises and the script exits non-zero):
    bytes; (c) decode_batch(frontend="fused") with native and with device
    conditioning, decode_cli run --frontend fused and bench_cli --frontend
    fused --conditioner device on the template WAVs give the native
-   frames; (d) CudaStreamFarm(fetch="full") on 9a's 64 streams and feeds:
+   frames; (d) CudaStreamFarm(fetch="full") on the first 16 of 9a's
+   streams and their feeds:
    its final state equals a chained fused_frontend's bit for bit; its
    frames equal the host streaming decoder's frames of phase 9, up to
    sample bounds that move by less than a symbol where the kernels'
@@ -141,7 +143,8 @@ Phases (any failure raises and the script exits non-zero):
    IsoDecoder's and the synthesizer's bytes; samples/s of each; (c)
    CudaLogicFarm(32, 24 MS/s) over 32 lanes (seeds 5000-5031) of
    4,194,304 samples, fed 262,144 at a time through one reused buffer,
-   plain and with the probes permuted under a channel_map: each stream's
+   plain, and the first 16 with the probes permuted under a channel_map
+   (CudaLogicFarm(16, ...)): each stream's
    frames equal its lane's one-shot frames and the synthesizer's bytes;
    wall time, samples/s, the IO thread's dispatch seconds and the
    caller's walk seconds (timed from outside the farm), peak memory; (d)
@@ -149,12 +152,36 @@ Phases (any failure raises and the script exits non-zero):
    and decode_cli live logictcp://... in a subprocess against the port's
    MockLogicTcpServer on (b)'s lane: the one-shot decoder's frames, no
    sample lost, samples/s against real time.
+13. The live monitor and the reports: (a) SpectrumProcessor (torch.fft,
+   cuFFT; no kernel of its own) on the card against device="cpu" on
+   seeded IQ at [1024, 2] (FourierTask's block), [4096, 1024, 2] and
+   [256, 2048, 2] at 20 MS/s (decimation 2), every window: each row
+   within 1e-5 of its maximum, argmax equal; a 1.2 MHz tone peaks at bin
+   635 +- 1; CUDA event ms of the batched calls' device work beside their
+   bound, wall us a 65,536-pair block (upload, FFT, fetch), peak memory;
+   (b) decode_cli live --frontend mask --monitor 0 --json in a subprocess
+   on phase 11b's paced samples, the kernels' counts set to 0 just before
+   and read just after: this process reads the URL from its stderr and
+   polls /data while the capture runs; the page is served, the last
+   snapshot holds the last printed frames with the parser's detail trees,
+   the spectrum, waterfall, wave and the radio.receiver, radio.decoder,
+   fourier and adaptive statuses; the lines equal 11b's; x real time,
+   frame lag and the queue at EOF beside 11b's, the signal.fft buffers
+   and the seconds in what the monitor adds; (c) decode_cli run --html
+   --frontend mask on the template WAVs writes --frontend host's page
+   byte for byte, and trace_cli --html on a TRZ of their frames lists the
+   same events and data.
+Depth cut to keep the script inside its time with phase 13 in it: 9c and
+10d run the first 16 of 9a's 64 streams, phase 7's long capture is 2**24
+samples (2**25 before), and 12c's channel-map run takes the first 16 of
+its 32 lanes.
 At the end neither JAX nor nfclab may have been imported.  The line
 before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel, the one before that the farm's
 launch counts, the one before that the full-channel path's launch
-counts, the one before that the live path's readings and the one before
-that the logic path's.  The last line is {"ok": true, "device": {...}}.
+counts, the one before that the live path's readings, the one before
+that the logic path's and the one before that the monitor phase's.  The
+last line is {"ok": true, "device": {...}}.
 --kernels-only stops after phase 2, for a first call after a kernel
 change.
 """
@@ -180,7 +207,7 @@ SOURCE = "nfclab_torch/csrc/fused_frontend.cu"
 COND_TPU_KERNEL = "nfclab/dsp/pallas/conditioner_kernel.py:31"
 COND_SOURCE = "nfclab_torch/csrc/conditioner.cu"
 COND_OPS = 22             # float and counter operations per sample
-LONG = 1 << 25            # the long capture of phase 7 (3.36 s, 512 blocks)
+LONG = 1 << 24            # the long capture of phase 7 (1.68 s, 256 blocks)
 DENSE_CPU_STREAMS = 64    # streams of phase 6's CPU comparison
 V2_SOURCE = "nfclab_torch/csrc/fused_v2.cu"
 PROBE_SOURCE = "nfclab_torch/csrc/probes.cu"
@@ -198,6 +225,7 @@ BOUNDARY_SLICE = 1 << 18    # fused_scan streams a call there (its state is
 BOUNDARY_V2 = 1 << 18       # v2_scan streams there (1285 state rows each)
 BOUNDARY_PROBE = (1 << 20) + 7  # serial_probe lanes there
 FARM_STREAMS = 64         # phase 9a: x 16 segments = the 1024-lane policy
+FARM_CUT = 16             # 9c and 10d: the first 16 of 9a's streams
 FARM_WINDOWS = 4          # full windows a stream, then the tail
 FARM_TAIL = 40_960        # the sub-chunk tail that finish() walks on the host
 FARM_FEED = 262_144       # samples a feed
@@ -1695,18 +1723,19 @@ def run_farm_phase(templates):
         f"{sum(missed.values())} of {sent} frames missed (by stream: "
         f"{missed}): {json.dumps(out['9a'])}")
 
-    # 9c: the same input through the serial chain
-    farm_c, got_c = counted_run("9c", sigs, segments=1)
-    if [_frames_key(f) for f in got_c] != [_frames_key(f) for f in got_a]:
+    # 9c: the first FARM_CUT streams of that input through the serial chain
+    farm_c, got_c = counted_run("9c", sigs[:FARM_CUT], segments=1)
+    if [_frames_key(f) for f in got_c] != [_frames_key(f)
+                                           for f in got_a[:FARM_CUT]]:
         raise AssertionError("farm 9c frames != 9a's")
     rows_c = farm_c._state[:, :5].cpu().numpy()
-    rows_a = farm_a._carry["end"][:, :5]
+    rows_a = farm_a._carry["end"][:FARM_CUT, :5]
     if rows_c.shape != rows_a.shape or not np.array_equal(
             rows_c.view(np.uint32), rows_a.view(np.uint32)):
         raise AssertionError("farm 9c conditioning rows 0-4 != 9a's "
                              "segmented carry")
     log(f"farm 9c (segments=1) frames == 9a's, conditioning rows 0-4 == "
-        f"9a's carry (bit-exact, {FARM_STREAMS} streams): "
+        f"9a's carry (bit-exact, {FARM_CUT} streams): "
         f"{json.dumps(out['9c'])}")
     out["repair"] = repair_steps(sigs[0], farm_a._carry["end"][:1])
     log(f"one repair of a 2-chunk segment, by step (s): "
@@ -2115,12 +2144,12 @@ def live_capture(templates, seed=3000):
     return np.concatenate(parts)[:total], sent
 
 
-def live_child(out_path, argv) -> int:
+def live_child(out_path, argv, extra=None) -> int:
     """decode_cli's main(argv) in this process with observers on the bus:
     the wall time at which each raw block and each frame is published,
     the samples waiting in the decoder task's queue when the EOF block is
-    published, and the tasks' statuses; written to out_path as JSON.
-    Returns main's exit code."""
+    published, and the tasks' statuses, with what `extra()` returns after
+    main; written to out_path as JSON.  Returns main's exit code."""
     import nfclab_torch.runtime.pipeline as rp
     from nfclab_torch.apps import decode_cli
     from nfclab_torch.runtime.subject import Subject
@@ -2159,7 +2188,8 @@ def live_child(out_path, argv) -> int:
                                                    replay=False)
     rc = decode_cli.main(argv)
     rec.update(rc=rc, raw=raw, frames=frames,
-               receiver=Subject.name("radio.receiver.status").value)
+               receiver=Subject.name("radio.receiver.status").value,
+               **(extra() if extra is not None else {}))
     Path(out_path).write_text(json.dumps(rec))
     return rc
 
@@ -2387,17 +2417,19 @@ def run_live_phase(templates):
         raise AssertionError("paced live --frontend mask lines != the host "
                              "streaming decoder's")
     out["11b"] = live_reading(rec, lines, n)
+    paced = (iq[: 2 * n], lines)  # phase 13b's input and reference
     got, out["11c"] = run_live_launches(mag)
     out["11c"]["chunk_ms"] = live_chunk_ms(mag)
     if _frames_key(got) != want_lines:
         raise AssertionError("in-process live task frames != host")
     if out["11c"]["segments"] != 4 or out["11c"]["seg_dispatches"] < 1:
         raise AssertionError(f"the live farm did not segment: {out['11c']}")
-    return out
+    return out, paced
 
 
 LOGIC_RATE = 24_000_000   # phase 12: the logic tests' rate, 4 MHz card clock
 LOGIC_STREAMS = 32        # 12c: CudaLogicFarm's streams
+LOGIC_MAP_STREAMS = 16    # 12c under a channel map: the first 16 lanes
 LOGIC_WINDOW = 1 << 20    # TpuLogicFarm's default k_samples
 LOGIC_LANE = 4 * LOGIC_WINDOW   # 12c: 175 ms of capture a stream
 LOGIC_ONE = 1 << 24       # 12b and 12d's live run: one stream, 0.70 s
@@ -2547,7 +2579,7 @@ def run_logic_stream(x, sent, want):
 
 
 def run_logic_farm(lanes, wants, channel_map=None):
-    """12c: CudaLogicFarm(LOGIC_STREAMS, LOGIC_RATE) over the lanes (probes
+    """12c: CudaLogicFarm(len(lanes), LOGIC_RATE) over the lanes (probes
     permuted by LOGIC_WIRING under a channel map), fed LOGIC_FEED samples
     at a time through one reused buffer: each stream's frames equal its
     lane's one-shot frames and the synthesizer's bytes.  Wall time,
@@ -2748,11 +2780,336 @@ def run_logic_phase():
     log(f"12b one stream: {json.dumps(out['12b'])}")
     out["12c"] = run_logic_farm(lanes, wants)
     log(f"12c logic farm: {json.dumps(out['12c'])}")
-    out["12c_channel_map"] = run_logic_farm(lanes, wants, LOGIC_CMAP)
+    out["12c_channel_map"] = run_logic_farm(
+        lanes[:LOGIC_MAP_STREAMS], wants[:LOGIC_MAP_STREAMS], LOGIC_CMAP)
     log(f"12c logic farm, channel map: {json.dumps(out['12c_channel_map'])}")
     del lanes, wants
     out["12d"] = run_logic_cli(one, one_sent, one_want)
     log(f"12d logic CLI: {json.dumps(out['12d'])}")
+    return out
+
+
+SPECTRUM_SHAPES = (          # phase 13a: (rows, IQ pairs a row, rate)
+    (1, 1024, RATE),         # FourierTask's block: one 1024-point row
+    (4096, 1024, RATE),
+    (256, 2048, 2 * RATE),   # decimation 2
+)
+SPECTRUM_TOL = 1e-5          # of each row's maximum, against device="cpu"
+SPECTRUM_TONE = 1.2e6        # 13a: peaks at bin 512 + 123
+SPECTRUM_BLOCKS = 200        # 13a: FourierTask-shaped calls timed
+
+
+def _spectrum_err(got, want):
+    """Largest |got - want| over each row's maximum; raises unless within
+    SPECTRUM_TOL with argmax equal."""
+    import numpy as np
+
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    if g.shape != w.shape or got.dtype != np.float32:
+        raise AssertionError(f"spectrum shape {got.shape} {got.dtype}")
+    err = float((np.abs(g - w).max(axis=1) / w.max(axis=1)).max())
+    if not err <= SPECTRUM_TOL or not np.array_equal(g.argmax(axis=1),
+                                                     w.argmax(axis=1)):
+        raise AssertionError(f"spectrum on the card != cpu: {err}")
+    return err
+
+
+def _wall_ms(fn, reps):
+    """Host ms a call of fn (which ends in a device sync), after one
+    warm-up call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_spectrum():
+    """13a: SpectrumProcessor on the card against device="cpu" on seeded
+    IQ at SPECTRUM_SHAPES and every window, within SPECTRUM_TOL of each
+    row's maximum with argmax equal; a 1.2 MHz tone's peak bin; CUDA event
+    ms of the batched calls' device work (spectrum() on the uploaded rows)
+    beside their bound; wall us a block at FourierTask's shape (upload,
+    FFT, fetch); peak device memory."""
+    import numpy as np
+    import torch
+
+    from nfclab_torch.dsp.spectrum import SpectrumProcessor, spectrum
+
+    out, worst = {"calls": {}}, 0.0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for b, n, rate in SPECTRUM_SHAPES:
+        dec = max(1, int(rate / 10e6))
+        iq = np.random.default_rng(b + n).standard_normal(
+            (b, n, 2)).astype(np.float32)
+        if b == 1:
+            iq = iq[0]
+        for window in (0, 1, 2):
+            card = SpectrumProcessor(window=window)
+            got = card.process(iq, rate)
+            want = SpectrumProcessor(window=window,
+                                     device="cpu").process(iq, rate)
+            worst = max(worst, _spectrum_err(got, want))
+        if b == 1:
+            continue
+        # the device work of one batched call, on the rows it uploads
+        x = torch.from_numpy(iq[:, : 1024 * dec]).cuda()
+        ms = _event_ms(lambda: spectrum(x, card._window, dec), 10)
+        ops = 5 * 1024 * np.log2(1024) * b   # radix-2 FFT flops a row
+        nbytes = b * 1024 * 8 + 1024 * 4 + b * 1024 * 4
+        bound, by = _bound(nbytes, ops)
+        out["calls"][f"{b}x{n}@{rate}"] = {
+            "ms": ms, "bound_ms": bound, "bound_by": by,
+            "process_ms": _wall_ms(lambda: card.process(iq, rate), 5)}
+        del x
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    t = np.arange(4096) / RATE
+    tone = np.stack([np.cos(2 * np.pi * SPECTRUM_TONE * t),
+                     np.sin(2 * np.pi * SPECTRUM_TONE * t)],
+                    axis=-1).astype(np.float32)
+    card = SpectrumProcessor()
+    peak = int(np.argmax(card.process(tone, RATE)))
+    expect = 512 + int(round(SPECTRUM_TONE / RATE * 1024))
+    if abs(peak - expect) > 1:
+        raise AssertionError(f"tone peak at bin {peak}, not {expect}")
+    block = np.random.default_rng(1).standard_normal(
+        (65536, 2)).astype(np.float32)   # one paced SpyServer message
+    out["block_us"] = _wall_ms(lambda: card.process(block, RATE),
+                               SPECTRUM_BLOCKS) * 1e3
+    out.update(max_rel_err=worst, tone_peak_bin=peak)
+    return out
+
+
+def monitor_child(out_path, argv) -> int:
+    """live_child with the monitor read from inside: the kernels' counts
+    set to 0 just before main and read just after, the signal.fft buffers
+    counted, the page and the last /data snapshot fetched just before the
+    server stops (tests/torch_monitor.PolledMonitor), the detail trees
+    the port's ProtocolParser gives the published frames in order, and
+    the seconds spent in what the monitor adds (the split): the spectrum
+    (SpectrumProcessor.process, on FourierTask's thread), resample_radio
+    (ResamplingTask's), MonitorState's bus observers (on the publishers'
+    threads: frames on the decoder's) and its snapshots (the server's)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_monitor
+
+    from nfclab_torch.apps import monitor
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp import resample, spectrum
+    from nfclab_torch.protocol.parser import ProtocolParser
+    from nfclab_torch.runtime.subject import Subject
+
+    split = {}
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+        split[key] = 0.0
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[key] += time.perf_counter() - t
+
+        setattr(owner, name, wrapper)
+
+    timed(spectrum.SpectrumProcessor, "process", "spectrum_s")
+    timed(resample, "resample_radio", "resample_s")
+    for name in ("_on_frame", "_on_fft", "_on_wave", "snapshot"):
+        timed(monitor.MonitorState, name, f"state{name}_s")
+    polled = torch_monitor.polled_monitor()
+    monitor.MonitorServer = polled
+    frames, ffts = [], []
+    Subject.name("radio.decoder.frame").subscribe(frames.append,
+                                                  replay=False)
+    Subject.name("signal.fft").subscribe(
+        lambda b: ffts.append(len(b.data)), replay=False)
+    for k in ff.KERNELS:
+        k.launches = 0
+
+    def extra():
+        launches = {k.name: k.launches for k in ff.KERNELS}
+        parser, details = ProtocolParser(), []
+        for f in frames:
+            if f is None:
+                parser.reset()
+                continue
+            node = parser.parse(f)
+            details.append(node.to_json() if node is not None else None)
+        (mon,) = polled.instances
+        return {"launches": launches, "fft_buffers": len(ffts),
+                "fft_bins": sorted(set(ffts)), "details": details,
+                "page": mon.page, "last": mon.last, "split_s": split}
+
+    return live_child(out_path, argv, extra)
+
+
+def run_monitor_cli(iq, want_lines):
+    """13b: decode_cli live --frontend mask --monitor 0 --json in a
+    subprocess (monitor_child) against the mock SpyServer serving `iq`
+    paced at RATE.  This process reads the URL from its stderr and polls
+    /data while the capture runs; the last snapshot (taken in the child
+    just before the server stops) must hold the last printed frames with
+    the parser's detail trees, the spectrum, waterfall, wave and the four
+    statuses; the printed lines must equal phase 11b's."""
+    import re
+    import threading
+    import urllib.request
+
+    import torch_monitor
+    from torch_sdr_mocks import MockSpyServer
+
+    out_dir = ROOT / "chiprun_out" / "chip_smoke"
+    out, log_path = out_dir / "live_13b.json", out_dir / "live_13b.stdout"
+    srv = MockSpyServer(iq, chunk=LIVE_MSG_PACED, rate=RATE)
+    argv = ["live", f"spyserver://127.0.0.1:{srv.port}", "--json",
+            "--no-settings", "--sample-rate", str(RATE), "--frontend",
+            "mask", "--timeout", "60", "--monitor", "0"]
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.monitor_child(sys.argv[1], sys.argv[2:]))")
+    polls, err = [], []
+
+    def poll(proc):
+        for line in proc.stderr:
+            err.append(line)
+            m = re.match(r"# monitor: (http://127\.0\.0\.1:\d+)/", line)
+            if m:
+                break
+        else:
+            return
+        rest = threading.Thread(target=lambda: err.extend(proc.stderr),
+                                daemon=True)
+        rest.start()
+        while proc.poll() is None:
+            try:
+                snap = json.loads(torch_monitor.get(m.group(1) + "/data",
+                                                    timeout=5))
+            except OSError:
+                break  # the server stopped
+            polls.append((time.perf_counter(), len(snap["frames"]),
+                          bool(snap["spectrum"])))
+            time.sleep(0.25)
+        rest.join(timeout=30)
+
+    with open(log_path, "w") as stdout:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(out), *argv],
+                                stdout=stdout, stderr=subprocess.PIPE,
+                                text=True, cwd=ROOT)
+        poller = threading.Thread(target=poll, args=(proc,), daemon=True)
+        poller.start()
+        try:
+            proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        poller.join(timeout=60)
+    srv.thread.join(timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError("decode_cli live --monitor failed:\n"
+                             + "".join(err)[-4000:])
+    rec = json.loads(out.read_text())
+    lines = [ln for ln in log_path.read_text().splitlines()
+             if ln.startswith("{")]
+    if lines != want_lines:
+        raise AssertionError("live --monitor lines != phase 11b's")
+    res = live_reading(rec, lines, len(iq) // 2)
+    res["monitor"] = torch_monitor.check_snapshot(rec["last"], lines,
+                                                  rec["details"])
+    if "nfclab live monitor" not in rec["page"]:
+        raise AssertionError("the monitor's page was not served")
+    if not polls or not any(n for _, n, _ in polls):
+        raise AssertionError(f"no frames polled while the capture ran: "
+                             f"{polls[-3:]}")
+    for name, c in rec["launches"].items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} never ran on the monitored "
+                                 "live path")
+    res.update(launches=rec["launches"], fft_buffers=rec["fft_buffers"],
+               fft_bins=rec["fft_bins"], split_s=rec["split_s"],
+               polls=len(polls),
+               polls_with_frames=sum(1 for _, n, _ in polls if n),
+               polls_with_spectrum=sum(1 for *_, s in polls if s))
+    if rec["fft_buffers"] < 1 or rec["fft_bins"] != [1024]:
+        raise AssertionError(f"signal.fft buffers: {rec['fft_buffers']} "
+                             f"{rec['fft_bins']}")
+    return res
+
+
+def _page_frames(page: str):
+    """(tech, type, command, data) of the frames JSON a report embeds."""
+    body = page.split('<script type="application/json" id="frames-json">')[1]
+    return [(a["tech"], a["type"], a["command"], a["data"])
+            for a in json.loads(body.split("</script>")[0])]
+
+
+def run_reports(templates):
+    """13c: decode_cli run --html with --frontend mask on the template
+    WAVs writes --frontend host's page byte for byte; their host frames
+    written to a TRZ with the port's io.trz give, through `python -m
+    nfclab_torch.tools.trace_cli X.trz --html`, a frame table with the
+    same events and data."""
+    from nfclab_torch.io.trz import write_trace
+    from nfclab_torch.io.wav import read_wav, write_wav
+    from nfclab_torch.runtime.decoder import NfcDecoder
+
+    out_dir = ROOT / "chiprun_out" / "chip_smoke"
+    paths, frames = [], []
+    for tp in templates:
+        paths.append(str(out_dir / f"{tp.name}.wav"))
+        write_wav(paths[-1], tp.samples, RATE)
+        x, info = read_wav(paths[-1])
+        frames += NfcDecoder().decode(x, info.sample_rate)
+    pages, procs = {}, {}
+    t0 = time.perf_counter()
+    for fe in ("host", "mask"):  # both at once
+        procs[fe] = subprocess.Popen(
+            [sys.executable, "-m", "nfclab_torch.apps.decode_cli", "run",
+             "--json", "--frontend", fe, "--html",
+             str(out_dir / f"report_{fe}.html"), *paths],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT)
+    for fe, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"run --html --frontend {fe} failed:\n"
+                                 f"{err[-4000:]}")
+        pages[fe] = (out_dir / f"report_{fe}.html").read_bytes()
+    res = {"run_both_s": time.perf_counter() - t0}
+    if pages["mask"] != pages["host"]:
+        raise AssertionError("run --html --frontend mask page != host's")
+    trz, page = out_dir / "templates.trz", out_dir / "trace.html"
+    write_trace(str(trz), frames)
+    proc = subprocess.run(
+        [sys.executable, "-m", "nfclab_torch.tools.trace_cli", str(trz),
+         "--html", str(page)],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"trace_cli --html failed:\n{proc.stderr}")
+    got = _page_frames(page.read_text(encoding="utf-8"))
+    want = _page_frames(pages["host"].decode("utf-8"))
+    if got != want or not got:
+        raise AssertionError("trace_cli's frame table != run --html's")
+    res.update(page_bytes=len(pages["host"]), frames=len(got),
+               commands=sorted({c for *_, c, _ in got if c}))
+    return res
+
+
+def run_monitor_phase(templates, paced, live_11b):
+    """Phase 13: the spectrum, the live monitor and the reports."""
+    t0 = time.perf_counter()
+    out = {"card": card_line(), "13a": run_spectrum()}
+    log(f"13a spectrum: {json.dumps(out['13a'])}")
+    iq, lines = paced
+    out["13b"] = run_monitor_cli(iq, lines)
+    out["13b"]["without_monitor_11b"] = {
+        k: live_11b[k] for k in ("realtime_x", "lag_s", "pending_at_eof")}
+    log(f"13b live --monitor: {json.dumps(out['13b'])}")
+    out["13c"] = run_reports(templates)
+    log(f"13c reports: {json.dumps(out['13c'])}")
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3170,13 +3527,14 @@ def main(argv=None) -> int:
     del caps2
     check_full_decode(tpls)
     full["10c_bench_cli"] = check_full_surfaces(tpls, out_dir)
-    full["10d"] = run_full_farm(farm_sigs, farm_want, farm_reps, tpls)
+    full["10d"] = run_full_farm(farm_sigs[:FARM_CUT], farm_want[:FARM_CUT],
+                                farm_reps[:FARM_CUT], tpls)
     del farm_sigs, farm_want
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     # 11. live capture through decode_cli live
     t0 = time.perf_counter()
-    live = run_live_phase(tpls)
+    live, paced = run_live_phase(tpls)
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     # 12. the ISO7816 logic path
@@ -3184,6 +3542,11 @@ def main(argv=None) -> int:
     logic = run_logic_phase()
     logic["phase_s"] = time.perf_counter() - t0
     log(f"phase 12 took {logic['phase_s']:.1f} s")
+
+    # 13. the spectrum, the live monitor and the reports
+    monitor = run_monitor_phase(tpls, paced, live["11b"])
+    del paced
+    log(f"phase 13 took {monitor['phase_s']:.1f} s")
 
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
@@ -3250,6 +3613,7 @@ def main(argv=None) -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
     if loaded:
         raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"monitor": monitor}))
     log(json.dumps({"logic": logic}))
     log(json.dumps({"live": live}))
     log(json.dumps({"full_path": {

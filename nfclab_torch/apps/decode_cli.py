@@ -4,11 +4,13 @@
   decode each wav, compare against the sibling .json, print PASS/FAIL,
   create the golden on first run (TEST UPDATED).
 - ``nfclab-torch-decode run <wav...>``: print each decoded frame as a text
-  line or compact JSON line (--json).
+  line or compact JSON line (--json); ``--html OUT`` also writes nfclab's
+  report (frame table, protocol trees, spectrum waterfall, wave strips).
 - ``nfclab-torch-decode live <uri>``: live SDR capture (loopback, rtl_tcp,
   SpyServer or a USB radio through the native bridge) or live
   logic-analyzer capture (logicloop, logictcp, DSLogic, Sipeed) decoded as
-  it streams, each frame printed as it completes.
+  it streams, each frame printed as it completes; ``--monitor PORT``
+  serves nfclab's live monitor, its spectrum on ``--device``.
 
 ``--frontend host`` decodes on the host alone; ``--frontend mask`` takes
 the detect triggers from the fused frontend kernels (dsp.cuda_channels) on
@@ -17,8 +19,9 @@ the detect triggers from the fused frontend kernels (dsp.cuda_channels) on
 the detect mask from them (``fused_capture_all``), and only the
 carrier-edge tracker and the walk run on the host.  ``live --frontend
 mask`` runs the live decoder on a one-stream CudaStreamFarm on
-``--device``; it exits 1 when its decoder task fails, and never falls
-back to the host frontend.  ``--conditioner jax``
+``--device``; it exits 1 when its decoder task (or, with --monitor,
+FourierTask or ResamplingTask) fails, and never falls back to the host
+frontend.  ``--conditioner jax``
 conditions on ``--device`` with the device conditioner
 (dsp.conditioner.condition_jax) instead of the C++ one; it combines with
 the host and mask frontends (the fused one conditions on the device
@@ -147,11 +150,8 @@ def _parse_channel_map(spec: str | None):
     return [int(x) for x in spec.split(",")]
 
 
-class UnsupportedCapture(Exception):
-    """A capture the port cannot decode yet."""
-
-
-def _decode(path: str, args) -> list[Frame]:
+def _decode(path: str, args):
+    """(frames, samples, info) of one WAV, read once."""
     from ..io.wav import read_wav
 
     samples, info = read_wav(path)
@@ -161,7 +161,7 @@ def _decode(path: str, args) -> list[Frame]:
         from ..runtime.logic_decoder import IsoDecoder
 
         dec = IsoDecoder(channel_map=_parse_channel_map(args.channel_map))
-        return dec.decode(samples, info.sample_rate)
+        return dec.decode(samples, info.sample_rate), samples, info
     dec = NfcDecoder(
         enable_nfca=not args.disable_nfca,
         enable_nfcb=not args.disable_nfcb,
@@ -180,8 +180,9 @@ def _decode(path: str, args) -> list[Frame]:
             samples, info.sample_rate, args.power_threshold,
             thresholds=dec.thresholds, device=args.device,
         )
-        return dec.decode(samples, info.sample_rate, cond=cond,
-                          tpu_channels=chans)
+        frames = dec.decode(samples, info.sample_rate, cond=cond,
+                            tpu_channels=chans)
+        return frames, samples, info
     cond = chans = None
     if args.conditioner == "jax":
         # the device conditioner on --device; the decoder takes its arrays
@@ -200,8 +201,9 @@ def _decode(path: str, args) -> list[Frame]:
             samples, info.sample_rate, args.power_threshold,
             thresholds=dec.thresholds, device=args.device,
         )
-    return dec.decode(samples, info.sample_rate, cond=cond,
-                      tpu_channels=chans)
+    frames = dec.decode(samples, info.sample_rate, cond=cond,
+                        tpu_channels=chans)
+    return frames, samples, info
 
 
 def _check_paths(paths) -> str | None:
@@ -229,7 +231,7 @@ def cmd_test(args) -> int:
     for wav in paths:
         target = wav.with_suffix(".json")
         frames = [
-            f for f in _decode(str(wav), args)
+            f for f in _decode(str(wav), args)[0]
             if f.frame_type in GOLDEN_TYPES
         ]
         if target.exists():
@@ -249,9 +251,32 @@ def cmd_run(args) -> int:
         print(f"error: no such file or directory: {missing}",
               file=sys.stderr)
         return 1
+    sections = []
+    all_frames: list[Frame] = []
     for wav in args.paths:
-        for frame in _decode(wav, args):
+        frames, samples, info = _decode(wav, args)
+        all_frames.extend(frames)
+        for frame in frames:
             print(frame_json(frame) if args.json else frame_text(frame))
+        if args.html:
+            # spectrum waterfall + wave strip per capture (GUI views)
+            from ..tools.html_report import capture_sections
+
+            sections.append(
+                capture_sections(
+                    Path(wav).stem, samples, info.sample_rate, frames
+                )
+            )
+    if args.html:
+        from ..tools.html_report import render_html
+
+        page = render_html(
+            all_frames, title=" + ".join(Path(p).stem for p in args.paths),
+            extra_sections="".join(sections),
+        )
+        with open(args.html, "w", encoding="utf-8") as fh:
+            fh.write(page)
+        print(f"wrote {args.html}")
     return 0
 
 
@@ -311,9 +336,11 @@ def cmd_live(args) -> int:
     """Live capture + decode (app-rx's receiver role, main.cpp:189-345):
     a native-bridge SDR device streams into the incremental decoder; frames
     print as they complete.  A logic-analyzer URI (hw.sdr.LOGIC_SCHEMES)
-    streams into the incremental ISO7816 decoder instead.  Exits 1 when the
-    decoder task ends in error (a failed dispatch of the mask frontend,
-    say): frames stop there."""
+    streams into the incremental ISO7816 decoder instead.  ``--monitor``
+    adds nfclab's monitor: FourierTask (the spectrum on --device),
+    ResamplingTask and the MonitorServer on the bus.  Exits 1 when the
+    decoder task, FourierTask or ResamplingTask ends in error (a failed
+    dispatch of the mask frontend, say): frames stop there."""
     import queue as _queue
 
     from ..hw.device import (
@@ -330,16 +357,15 @@ def cmd_live(args) -> int:
     )
     from ..runtime.subject import Subject
 
-    if args.monitor is not None:
-        raise UnsupportedCapture(
-            "--monitor needs the spectrum task and the monitor server, "
-            "not ported yet (ROADMAP Queue 1 items 13 and 18)"
-        )
     frames: "_queue.Queue" = _queue.Queue()
 
-    def on_status(status):
-        if status.get("status") == "error":
-            frames.put(status)  # wakes the printing loop below
+    def watch(task: str):
+        """Observer of a task's status: its error wakes the printing loop
+        below."""
+        def on_status(status):
+            if status.get("status") == "error":
+                frames.put({"task": task, "error": status.get("error")})
+        return on_status
 
     if args.uri.split("://")[0] in LOGIC_SCHEMES:
         # live logic capture (logicloop / logictcp / dslogic / sipeed) ->
@@ -377,8 +403,20 @@ def cmd_live(args) -> int:
             args.uri, config, duration_blocks=args.blocks,
             reconnect=args.reconnect,
         )
+    monitor_tasks = []
+    if args.monitor is not None:
+        # live monitoring view: spectrum + adaptive-wave tasks + one-page
+        # web app off the bus; the spectrum runs on --device
+        # (DeviceUnavailable, which main prints, before any capture starts)
+        from ..runtime.pipeline import FourierTask, ResamplingTask
+
+        monitor_tasks = [FourierTask(device=args.device), ResamplingTask()]
+        for task in ("fourier", "adaptive"):
+            Subject.name(f"{task}.status").subscribe(watch(task),
+                                                     replay=False)
     Subject.name(f"{prefix}.frame").subscribe(frames.put, replay=False)
-    Subject.name(f"{prefix}.status").subscribe(on_status, replay=False)
+    Subject.name(f"{prefix}.status").subscribe(watch("decoder"),
+                                               replay=False)
     # SIGTERM (systemd stop, `timeout`) should shut the capture chain down
     # like ^C: Python's default action kills the process mid-stream with
     # native reader threads still in recv(), which aborts at teardown
@@ -392,7 +430,17 @@ def cmd_live(args) -> int:
     except ValueError:
         pass  # non-main thread (embedded use): keep default
 
+    monitor = None
     ex = Executor(pool_size=4)
+    if monitor_tasks:
+        from .monitor import MonitorServer
+
+        for task in monitor_tasks:
+            ex.submit(task)
+        monitor = MonitorServer(port=args.monitor).start()
+        print(
+            f"# monitor: http://127.0.0.1:{monitor.port}/", file=sys.stderr
+        )
     ex.submit(decoder)
 
     # persistent settings tier (the reference's nfc-lab.ini): stored
@@ -432,8 +480,8 @@ def cmd_live(args) -> int:
     try:
         while True:
             frame = frames.get(timeout=args.timeout)
-            if isinstance(frame, dict):  # the decoder task's error status
-                failed = frame.get("error")
+            if isinstance(frame, dict):  # a task's error status
+                failed = frame
                 break
             if frame is None:  # per-session EOF sentinel
                 if args.reconnect:
@@ -454,9 +502,12 @@ def cmd_live(args) -> int:
             except Exception as e:
                 print(f"# settings not saved: {e!r}", file=sys.stderr)
         ex.shutdown()
+        if monitor is not None:
+            monitor.stop()
     print(f"# {count} frames", file=sys.stderr)
     if failed is not None:
-        print(f"error: decoder task failed: {failed}", file=sys.stderr)
+        print(f"error: {failed['task']} task failed: {failed['error']}",
+              file=sys.stderr)
         return 1
     return 0
 
@@ -502,6 +553,12 @@ def main(argv=None) -> int:
             help="ISO7816 probe wiring: 'io=2,clk=0,rst=1,vcc=3' or "
             "'2,0,1,3' ([io,clk,rst,vcc] physical probe indices)",
         )
+        if name == "run":
+            p.add_argument(
+                "--html", metavar="OUT",
+                help="write an HTML report (frame table + protocol trees + "
+                "spectrum waterfall + wave strips)",
+            )
         p.set_defaults(fn=fn)
     p = sub.add_parser("live", help="live SDR capture + decode")
     p.add_argument(
@@ -546,8 +603,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="where --frontend mask runs: cuda (the kernels) or cpu "
-        "(their plain PyTorch versions)",
+        help="where --frontend mask and --monitor's spectrum run: cuda "
+        "(the kernels, cuFFT) or cpu (their plain PyTorch versions, "
+        "PyTorch's CPU FFT)",
     )
     p.add_argument(
         "--settings", metavar="PATH", default=None,
@@ -562,7 +620,9 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--monitor", type=int, metavar="PORT", default=None,
-        help="the live monitor view (not ported yet: refused)",
+        help="serve the live monitor view (frame table + spectrum + task "
+        "status) on this port (0 = ephemeral; URL printed to stderr); the "
+        "spectrum runs on --device",
     )
     p.add_argument(
         "--config", metavar="JSON",
@@ -576,7 +636,7 @@ def main(argv=None) -> int:
 
     try:
         return args.fn(args)
-    except (UnsupportedCapture, DeviceUnavailable) as e:
+    except DeviceUnavailable as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
 

@@ -4,8 +4,9 @@ Long-lived worker tasks connected by named Subject streams, run on an
 executor thread pool (rt::Executor).  Stream topology matches the
 reference wire protocol:
 
-    radio.signal.iq    IQ blocks from source      -> storage
+    radio.signal.iq    IQ blocks from source      -> fourier, storage
     radio.signal.raw   magnitude blocks           -> decoder, resampler
+    signal.fft         spectrum bins              -> consumers (the monitor)
     adaptive.signal    adaptive render stream     -> consumers, trace writer
     radio.decoder.frame                           decoded frames
     logic.signal.raw   logic-analyzer blocks      -> logic decoder, resampler
@@ -26,8 +27,9 @@ raises DeviceUnavailable when the task is built, and a failed dispatch
 propagates, so Executor's fence publishes the task's "error" status.
 The logic-analyzer tasks (LogicDecoderTask, LogicSourceTask,
 LiveLogicSourceTask) are copies too: the live ISO7816 decoder runs
-StreamingIsoDecoder's host frontend, as nfclab's does.  FourierTask is not
-ported yet.
+StreamingIsoDecoder's host frontend, as nfclab's does.  FourierTask is
+ported: its spectrum runs on ``device`` (dsp.spectrum, torch.fft), and a
+missing card raises DeviceUnavailable when it is built.
 """
 
 from __future__ import annotations
@@ -840,6 +842,59 @@ class LiveLogicSourceTask(Task):
         self.update_status(
             "complete", samples=self.throughput.total, lost=self.samples_lost
         )
+
+
+class FourierTask(Task):
+    """Latest IQ block -> signal.fft spectrum bins (FourierProcessTask
+    parity; the reference refreshes at ~100 fps, here per published block).
+
+    nfclab's task with the spectrum on ``device``: a missing card raises
+    DeviceUnavailable here, before any capture starts, and a failed
+    ``process`` ends the task with Executor's "error" status (no host
+    fallback)."""
+
+    def __init__(self, length: int = 1024, bandwidth: float = 10e6,
+                 device="cuda"):
+        super().__init__("worker.FourierProcess", "fourier")
+        from ..dsp.spectrum import SpectrumProcessor
+
+        self.processor = SpectrumProcessor(length=length, bandwidth=bandwidth,
+                                           device=device)
+        self.out = Subject.name("signal.fft")
+        self.q: "queue.Queue[SignalBuffer]" = queue.Queue()
+        Subject.name("radio.signal.iq").subscribe(self.q.put, replay=False)
+
+    def run(self):
+        self.update_status("streaming")
+        while not self.terminated:
+            self.handle_commands()
+            try:
+                buf = self.q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if not buf.valid:
+                continue  # stream boundary; keep serving the next session
+            data = np.asarray(buf.data, np.float32)
+            if data.ndim == 1:
+                # live sources publish interleaved IQ; the processor takes
+                # [N, 2] pairs
+                data = data[: len(data) // 2 * 2].reshape(-1, 2)
+            need = self.processor.length * max(
+                1, int(buf.sample_rate / self.processor.bandwidth)
+            )
+            if len(data) < need:
+                continue
+            mag = self.processor.process(data, buf.sample_rate)
+            self.out.next(
+                SignalBuffer(
+                    mag,
+                    buf.sample_rate,
+                    buf.offset,
+                    signal_type=SignalType.SIGNAL_TYPE_FFT_BIN,
+                )
+            )
+            self.throughput.update(buf.elements)
+        self.update_status("complete")
 
 
 class SignalStorageTask(Task):

@@ -30,6 +30,13 @@ COPIED = [
     "hw/sdr.py",
     "dsp/magnitude.py", "dsp/resample.py", "io/trz.py",
     "demod/iso7816.py",
+    "protocol/parser/__init__.py", "protocol/parser/tree.py",
+    "protocol/parser/base.py", "protocol/parser/nfca.py",
+    "protocol/parser/nfcb.py", "protocol/parser/nfcf.py",
+    "protocol/parser/nfcv.py", "protocol/parser/iso7816.py",
+    "protocol/parser/dispatch.py",
+    "tools/__init__.py", "tools/analyze.py", "tools/html_report.py",
+    "tools/trace_cli.py", "apps/monitor.py",
 ]
 
 # functions and classes copied into modules that are ported, not copied,
@@ -63,6 +70,7 @@ COPIED_FUNCTIONS = [
     ("runtime/pipeline.py", "LogicDecoderTask"),
     ("runtime/pipeline.py", "LogicSourceTask"),
     ("runtime/pipeline.py", "LiveLogicSourceTask"),
+    ("dsp/spectrum.py", "make_window"),
 ]
 
 # the port's native build is atomic: nfclab's writes the library in place,

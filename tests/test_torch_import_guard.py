@@ -1,6 +1,6 @@
 """nfclab_torch imports neither JAX nor anything of nfclab or of the
 repository's experiments/: every module of the port, and chip_smoke.py
-with the synth and mock-server helpers it uses, import and run their
+with the synth, mock-server and monitor helpers it uses, import and run their
 module-level code in a fresh interpreter where `jax` and `experiments`
 are blocked, and no `jax*`, `nfclab.*` or `experiments*` module ends up
 loaded."""
@@ -28,7 +28,9 @@ import chip_smoke
 import torch_synth
 import torch_sdr_mocks
 import torch_logic_synth
+import torch_monitor
 torch_synth.templates()
+torch_monitor.polled_monitor()
 torch_logic_synth.logic_lane(200_000, seed=0)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "experiments") and sys.modules[m] is not None
@@ -76,7 +78,12 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.hw.sdr",
                  "nfclab_torch.demod.iso7816",
                  "nfclab_torch.dsp.logic_frontend",
-                 "nfclab_torch.runtime.logic_decoder"):
+                 "nfclab_torch.runtime.logic_decoder",
+                 "nfclab_torch.dsp.spectrum",
+                 "nfclab_torch.protocol.parser.dispatch",
+                 "nfclab_torch.tools.html_report",
+                 "nfclab_torch.tools.trace_cli",
+                 "nfclab_torch.apps.monitor"):
         assert need in mods
 
 
@@ -88,7 +95,8 @@ def test_port_sources_name_no_jax_or_nfclab_import():
     pat = re.compile(r"^\s*(from|import)\s+(jax|nfclab|experiments)(\.|\s|$)")
     files = list((ROOT / "nfclab_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sdr_mocks.py",
-              ROOT / "tests" / "torch_logic_synth.py"]
+              ROOT / "tests" / "torch_logic_synth.py",
+              ROOT / "tests" / "torch_monitor.py"]
     for f in files:
         for ln in f.read_text().splitlines():
             assert not pat.match(ln), f"{f}: {ln}"

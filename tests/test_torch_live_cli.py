@@ -5,9 +5,11 @@ CHAIN_CHUNK of tests/test_torch_live.py).
 - SpyServer (int16) and rtl_tcp (8-bit): the lines of --frontend mask
   --device cpu equal those of --frontend host and of nfclab's CLI, and the
   host streaming decoder's frames of the payload's magnitude.
-- Refusals, exit 1 with a message and no capture: --frontend mask without
-  a card and without --device cpu (DeviceUnavailable), --monitor.  (The
-  logic analyzers' schemes decode: tests/test_torch_logic_cli.py.)
+- Refusals, exit 1 with a message and no capture, without a card and
+  without --device cpu (DeviceUnavailable): --frontend mask, and --monitor
+  (its spectrum).  (The logic analyzers' schemes decode:
+  tests/test_torch_logic_cli.py; the monitor itself:
+  tests/test_torch_reports.py.)
 - A dispatch that fails mid-session: exit 1 with the error, and no line
   after the frames decoded before it (no host fallback).
 - The mocks' pacing option.
@@ -161,21 +163,26 @@ def test_cli_rtltcp_8bit_mask_equals_host(small_chunk, capsys):
     assert len(polls) == 1 + 2
 
 
-@pytest.mark.parametrize("case", ["no_card", "monitor"])
+@pytest.mark.parametrize("case", ["no_card", "monitor_no_card"])
 def test_cli_live_refusals(case, monkeypatch, capsys):
-    """Exit 1 with a message and no capture: --frontend mask without a card
-    and without --device cpu (DeviceUnavailable's message) and --monitor
-    (Queue 1 items 13, 18)."""
-    argv = [*LIVE, "loopback://test", "--frontend", "mask"]
+    """Exit 1 with DeviceUnavailable's message and no capture, without a
+    card and without --device cpu: --frontend mask (the decoder's
+    kernels), and --frontend host --monitor 0 (the monitor's spectrum,
+    FourierTask)."""
+    from nfclab_torch.runtime import pipeline
+
+    started = []
+    monkeypatch.setattr(pipeline.LiveRadioSourceTask, "run",
+                        lambda self: started.append(self))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [*LIVE, "loopback://test"]
     if case == "no_card":
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        want = "CUDA is not available"
+        argv += ["--frontend", "mask"]
     else:
-        argv += ["--device", "cpu", "--monitor", "0"]
-        want = "items 13 and 18"
+        argv += ["--frontend", "host", "--monitor", "0"]
     rc, lines, err = _live_in_process(argv, capsys)
-    assert rc == 1 and lines == []
-    assert err.startswith("error: ") and want in err
+    assert rc == 1 and lines == [] and started == []
+    assert err.startswith("error: ") and "CUDA is not available" in err
 
 
 def test_cli_dispatch_failure_exits_1(small_chunk, monkeypatch, capsys):
