@@ -171,6 +171,29 @@ Phases (any failure raises and the script exits non-zero):
    --frontend mask on the template WAVs writes --frontend host's page
    byte for byte, and trace_cli --html on a TRZ of their frames lists the
    same events and data.
+14. Sharding (nfclab_torch/shard), in subprocesses: (a) world size 1 on
+   NCCL (shard/launch.initialize over a file store) on phase 7's long
+   capture: sharded_kernel_channels (both fused kernels, launch counts set
+   to 0 just before and read just after) bit for bit against
+   fused_capture_channels; the first rows' conditioning (row 0 from clock
+   = pulse = -H over its zero halo) against the plain version and row 0's
+   body against a fresh stream of the C++ oracle, bit for bit;
+   sharded_capture_channels (condition_scan counted) bit for bit against
+   a CPU run on the first 2**21 samples; decode_sharded on those samples
+   equal to nfclab's frames (SHARD_NFCLAB_FRAMES, pinned against nfclab by
+   tests/test_torch_shard.py) and to the walk over the CPU run's channels;
+   decode_sharded on the whole capture (counted) against the walk over its
+   channels, against phase 7's host frames (the float32 boxes move bounds
+   on these noise-free templates: counts) and the walk over its mask
+   alone equal to phase 7's host frames; decode_sharded on a noisy lane of
+   each template equal to the host's frames but for bounds moved by at
+   most 2 samples; (b) two gloo ranks sharing the card
+   (tests/torch_dist_child.py): both paths' channels (sha256 digests) and
+   the frames equal (a)'s on both ranks; (d) validate_cuda_shard_kernel's
+   entry point on the template WAVs, in (a)'s process once its group is
+   destroyed; (c) scaling_bench --devices 1 --cuda: step ms,
+   samples/s, collective_share, and the fused pair's samples/s a card.
+   Each runs alone on the card.
 Depth cut to keep the script inside its time with phase 13 in it: 9c and
 10d run the first 16 of 9a's 64 streams, phase 7's long capture is 2**24
 samples (2**25 before), and 12c's channel-map run takes the first 16 of
@@ -180,8 +203,9 @@ before the last is the card's name and power limit; the one before it a
 JSON object with one entry per kernel, the one before that the farm's
 launch counts, the one before that the full-channel path's launch
 counts, the one before that the live path's readings, the one before
-that the logic path's and the one before that the monitor phase's.  The
-last line is {"ok": true, "device": {...}}.
+that the logic path's, the one before that the monitor phase's and the
+one before that the shard phase's.  The last line is {"ok": true,
+"device": {...}}.
 --kernels-only stops after phase 2, for a first call after a kernel
 change.
 """
@@ -189,6 +213,7 @@ change.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -1489,7 +1514,7 @@ def run_conditioner_path(templates, out_dir):
         raise AssertionError("CLI --conditioner jax lines != native")
     log(f"CLI run --conditioner jax (with and without --frontend mask) == "
         f"native ({len(lines[()])} lines)")
-    return res, launches
+    return res, launches, _frames_key(native)
 
 
 def farm_lanes(templates, n_streams, seed0):
@@ -3113,6 +3138,280 @@ def run_monitor_phase(templates, paced, live_11b):
     return out
 
 
+SHARD_PREFIX = 1 << 21    # 14a: samples held against a CPU run
+SHARD_LANES = 3           # 14a: template repeats in each noisy lane
+# 14a: (count, sha256 of the JSON lines) of nfclab's decode_sharded frames on
+# long_capture's first SHARD_PREFIX samples, held against nfclab by
+# tests/test_torch_shard.py::test_noise_free_capture_frames_match_nfclab
+SHARD_NFCLAB_FRAMES = (
+    30, "4f2bd3f6982148fca454bc7a025c637c26add2958722442b87cf57db98ddf94d")
+
+
+def _frames_against(got, want):
+    """How two frame lists (JSON lines) part: equal lines, lines only in
+    each, and lines equal but for their timing keys."""
+    def untimed(lines):
+        return {json.dumps({k: v for k, v in json.loads(ln).items()
+                            if k not in TIMING_KEYS}, sort_keys=True)
+                for ln in lines}
+
+    g, w = set(got), set(want)
+    return {"frames": len(got), "reference": len(want),
+            "equal": len(g & w), "only_here": len(g - w),
+            "only_in_reference": len(w - g),
+            "untimed_only_here": len(untimed(got) - untimed(want)),
+            "untimed_only_in_reference": len(untimed(want) - untimed(got))}
+
+
+def shard_child(out_path, cap_path, host_path, *wavs) -> int:
+    """Phase 14a in its own process: world size 1 on NCCL (shard/launch.
+    initialize over a file store), the blocks layout on the card, the
+    capture and its host frames from files; then, with the group
+    destroyed, 14d: validate_cuda_shard_kernel's entry point on the WAVs.
+    The record goes to out_path as JSON."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import conditioner_kernel as ck
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp.cuda_channels import fused_capture_channels
+    from nfclab_torch.dsp.frontend import _params_tuple
+    from nfclab_torch.native import condition_exact
+    from nfclab_torch.runtime.decoder import NfcDecoder
+    from nfclab_torch.shard import multichip as sm
+    from nfclab_torch.shard.launch import global_mesh, initialize
+    from torch_dist_child import digest
+    from torch_synth import lane, templates
+
+    initialize(f"file://{Path(out_path).with_suffix('.store')}", 1, 0,
+               device="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world size 1 on {dist.get_backend()}")
+    mesh = global_mesh(device="cuda")
+    x = np.load(cap_path)["samples"]
+    host = json.loads(Path(host_path).read_text())
+    kernels = (*ff.KERNELS, ck.COND)
+    rec = {"card": card_line(), "backend": dist.get_backend(), "world": 1,
+           "samples": len(x)}
+
+    def counted(fn, need):
+        """fn() with the kernels' counts set to 0 just before and read
+        just after; every kernel of `need` must have run."""
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = {k.name: k.launches for k in kernels}
+        for name in need:
+            if n[name] <= 0:
+                raise AssertionError(f"{name} never ran on the shard path")
+        return out, {"s": dt, "launches": n}
+
+    # the kernel path against the one-process block layout, bit for bit
+    kc, rec["kernel_path"] = counted(
+        lambda: sm.sharded_kernel_channels(x, RATE, mesh=mesh),
+        ("fused_scan", "fused_mask"))
+    ref = fused_capture_channels(x, RATE, device="cuda")
+    if set(kc) != set(ref) or not all(
+            kc[k].dtype == ref[k].dtype and np.array_equal(
+                kc[k].view(np.uint8), ref[k].view(np.uint8)) for k in ref):
+        raise AssertionError("sharded_kernel_channels != "
+                             "fused_capture_channels on the card")
+    del ref
+    log(f"14a sharded_kernel_channels == fused_capture_channels (bit for "
+        f"bit, {len(kc)} channels): {json.dumps(rec['kernel_path'])}")
+
+    # the first rows' conditioning: row 0 from clock = pulse = -H over its
+    # zero halo, row 1 from 0 over row 0's tail; the kernel against the
+    # plain version, row 0's body against a fresh stream of the oracle
+    L, H = sm.DEFAULT_L, sm.DEFAULT_H
+    rows, _, _ = sm._layout_rows(x[: 2 * L], L, 1)
+    win, first, _ = sm._left_windows(torch.from_numpy(rows).cuda(), mesh, 2,
+                                     L, H)
+    z = torch.zeros(2, device="cuda")
+    neg = torch.where(first, -H, 0).to(torch.int32)
+    pt = _params_tuple(SignalParams(RATE))
+    card = ck.condition_scan(win, z, z, z, z, neg, neg, pt)
+    plain = ck.condition_scan_plain(win.cpu(), z.cpu(), z.cpu(), z.cpu(),
+                                    z.cpu(), neg.cpu(), neg.cpu(), pt)
+    for a, b in zip(card, plain):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("condition_scan from clock -H != its plain "
+                                 "version")
+    oracle = condition_exact(x[:L], SignalParams(RATE))
+    for name, i in (("envelope", 0), ("deviation", 2), ("average", 3),
+                    ("filtered", 4)):
+        a = card[i][0, H:].cpu().numpy()
+        if not np.array_equal(a.view(np.uint32),
+                              getattr(oracle, name).view(np.uint32)):
+            raise AssertionError(f"row 0 {name} != a fresh stream")
+    log("14a first rows: condition_scan from clock = pulse = -H equals its "
+        "plain version (rows 0-1) and row 0's body a fresh stream of the "
+        "C++ oracle, bit for bit")
+
+    # the capture path, on the card against a CPU run of its prefix, bit
+    # for bit
+    cc, rec["capture_path"] = counted(
+        lambda: sm.sharded_capture_channels(x, RATE, mesh=mesh),
+        ("condition_scan",))
+    xp = x[:SHARD_PREFIX]
+    t0 = time.perf_counter()
+    cpu = sm.sharded_capture_channels(xp, RATE,
+                                      mesh=global_mesh(device="cpu"))
+    rec["capture_path"]["cpu_prefix_s"] = time.perf_counter() - t0
+    for k, v in cpu.items():
+        if not np.array_equal(cc[k][:SHARD_PREFIX].view(np.uint8),
+                              v.view(np.uint8)):
+            raise AssertionError(f"sharded {k}: card != CPU")
+    log(f"14a sharded_capture_channels == its CPU run on {SHARD_PREFIX} "
+        f"samples (bit for bit): {json.dumps(rec['capture_path'])}")
+
+    # decode_sharded: on the prefix nfclab's frames, frame for frame; on
+    # the whole capture against phase 7's host frames
+    head = _frames_key(sm.decode_sharded(xp, RATE, mesh=mesh))
+    pinned = (len(head),
+              hashlib.sha256("\n".join(head).encode()).hexdigest())
+    if pinned != SHARD_NFCLAB_FRAMES:
+        raise AssertionError(f"decode_sharded on the prefix: {pinned} != "
+                             f"nfclab's {SHARD_NFCLAB_FRAMES}")
+    if head != _frames_key(NfcDecoder().decode(xp, RATE, tpu_channels=cpu)):
+        raise AssertionError("decode_sharded on the prefix: card != CPU")
+    rec["prefix_frames"] = {"frames": len(head), "equal_nfclab": True}
+    frames, rec["decode"] = counted(
+        lambda: sm.decode_sharded(x, RATE, mesh=mesh), ("condition_scan",))
+    got = _frames_key(frames)
+    if got != _frames_key(NfcDecoder().decode(x, RATE, tpu_channels=cc)):
+        raise AssertionError("decode_sharded != the walk over its channels")
+    rec["decode"]["against_host"] = _frames_against(got, host)
+    mask_only = _frames_key(NfcDecoder().decode(
+        x, RATE, tpu_channels={"detect_mask": cc["detect_mask"]}))
+    if mask_only != host:
+        raise AssertionError("the host walk over the sharded detect_mask "
+                             "alone != phase 7's host frames")
+    rec["decode"]["mask_only_equals_host"] = True
+    log(f"14a decode_sharded: the prefix's {len(head)} frames == nfclab's; "
+        f"whole capture {json.dumps(rec['decode'])}")
+
+    # noisy lanes (seeded gain, offset, noise) of the five templates
+    moved = []
+    for i, tp in enumerate(templates()):
+        y, _ = lane(tp, SHARD_LANES * len(tp.samples), seed=300 + i)
+        g = sm.decode_sharded(y, RATE, mesh=mesh)
+        w = NfcDecoder().decode(y, RATE)
+        shift = _timing_shift(_frames_key(g), _frames_key(w))
+        if shift is None or shift[0] > 2:
+            raise AssertionError(f"decode_sharded on the {tp.name} lane "
+                                 "!= host beyond 2 samples")
+        moved.append(sum(a != b for a, b in zip(_frames_key(g),
+                                                 _frames_key(w))))
+    rec["lanes_moved_frames"] = moved
+    log(f"14a decode_sharded on the five noisy template lanes == host but "
+        f"for bounds moved by <= 2 samples in {moved} frames")
+    rec["digests"] = {"cap": {k: digest(v) for k, v in cc.items()},
+                      "ker": {k: digest(v) for k, v in kc.items()},
+                      "frames": got}
+    dist.destroy_process_group()
+
+    import contextlib
+    import io
+
+    from nfclab_torch.tools import validate_cuda_shard_kernel
+
+    buf, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = validate_cuda_shard_kernel.main(list(wavs))
+    lines = buf.getvalue().splitlines()
+    if (code != 0 or lines[-1:] != ["OK"]
+            or sum("bit-exact" in ln for ln in lines) != len(wavs)):
+        raise AssertionError(f"14d validate_cuda_shard_kernel: {lines}")
+    rec["validate"] = {"wavs": len(wavs), "s": time.perf_counter() - t0,
+                       "lines": lines[:-1]}
+    Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def run_shard_phase(templates, host_frames, out_dir):
+    """Phase 14: sharding on the card, in subprocesses, one at a time.
+    (a) world size 1 on NCCL on phase 7's long capture, then (d)
+    validate_cuda_shard_kernel's entry point on the template WAVs, in one
+    process (shard_child); (b) two gloo ranks sharing the card
+    (tests/torch_dist_child.py); (c) scaling_bench at world size 1 with
+    --cuda."""
+    import tempfile
+
+    import numpy as np
+
+    from torch_dist_child import run_world
+
+    from nfclab_torch.shard.multichip import DEFAULT_H, DEFAULT_L
+
+    t0 = time.perf_counter()
+    out = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cap = tmp / "capture.npz"
+        np.savez(cap, samples=long_capture(templates), rate=RATE)
+        (tmp / "host.json").write_text(json.dumps(host_frames))
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke.shard_child("
+                "*sys.argv[1:]))")
+        paths = [str(out_dir / f"{tp.name}.wav") for tp in templates]
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(tmp / "a.json"), str(cap),
+             str(tmp / "host.json"), *paths],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        for ln in proc.stdout.splitlines():
+            log("  " + ln)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 14a failed:\n{proc.stderr[-4000:]}")
+        a = json.loads((tmp / "a.json").read_text())
+        want = a.pop("digests")
+        out["14d"] = a.pop("validate")
+        out["14a"] = a
+        log(f"14d validate_cuda_shard_kernel on {len(paths)} template WAVs: "
+            f"OK ({out['14d']['s']:.1f} s)")
+
+        (tmp / "b").mkdir()
+        t1 = time.perf_counter()
+        ranks = run_world(2, cap, tmp / "b", device="cuda", backend="gloo",
+                          kernel_lh=(DEFAULT_L, DEFAULT_H), timeout=300)
+        b_s = time.perf_counter() - t1
+    for r, rk in enumerate(ranks):
+        if (rk["cap"] != want["cap"] or rk["ker"] != want["ker"]
+                or rk["frames"] != want["frames"]):
+            raise AssertionError(f"14b rank {r} of 2 (gloo, one card) != "
+                                 "world size 1")
+    out["14b"] = {"ranks": 2, "backend": "gloo", "wall_s": b_s,
+                  "decode_s": [rk["decode_s"] for rk in ranks],
+                  "kernel_s": [rk["kernel_s"] for rk in ranks]}
+    log(f"14b two gloo ranks on one card == world size 1 (channels of both "
+        f"paths bit for bit, frames): {json.dumps(out['14b'])}")
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "nfclab_torch.tools.scaling_bench",
+         "--devices", "1", "--cuda"],
+        capture_output=True, text=True, cwd=ROOT, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"14c scaling_bench failed:\n{proc.stderr}")
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    if ([r["metric"] for r in rows]
+            != ["sharded_frontend_samples_per_second",
+                "fused_kernel_samples_per_second_per_card"]
+            or not all(r["value"] > 0 for r in rows)
+            or not 0.0 <= rows[0]["collective_share"] < 1.0):
+        raise AssertionError(f"14c scaling_bench: {rows}")
+    out["14c"] = rows
+    log(f"14c scaling_bench: {json.dumps(rows)}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def check_v2(dev, streams, chunk, errs, seed, timed=False):
     """fused_v2's kernels against their plain versions over two chunks of
     mixed lanes with carried state (clocks from 40): the two-kernel chain
@@ -3508,7 +3807,7 @@ def main(argv=None) -> int:
     log(f"dense frontend {STREAMS} x 65536 at {RATE} Hz: {json.dumps(dense)}")
 
     # 7. the device conditioner and its callers
-    cpath, cond_launches = run_conditioner_path(tpls, out_dir)
+    cpath, cond_launches, host7 = run_conditioner_path(tpls, out_dir)
     log(f"conditioning path: {json.dumps(cpath)}")
 
     # 8. the experiments/ counterparts at full width
@@ -3548,6 +3847,11 @@ def main(argv=None) -> int:
     del paced
     log(f"phase 13 took {monitor['phase_s']:.1f} s")
 
+    # 14. sharding: world size 1 on NCCL, two gloo ranks, the tools
+    shard = run_shard_phase(tpls, host7, out_dir)
+    del host7
+    log(f"phase 14 took {shard['phase_s']:.1f} s")
+
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
                     "repair_ms": farm["repair"]["scan_kernel_ms"],
@@ -3557,7 +3861,9 @@ def main(argv=None) -> int:
                         "fused_scan"],
                     "full_farm_launches": full["10d"]["launches"][
                         "fused_scan"],
-                    "live_launches": live["11c"]["launches"]["fused_scan"]},
+                    "live_launches": live["11c"]["launches"]["fused_scan"],
+                    "shard_launches": shard["14a"]["kernel_path"][
+                        "launches"]["fused_scan"]},
                 "fused_mask": {
                     "repair_ms": farm["repair"]["mask_kernel_ms"],
                     "full_path_launches": full["10a"]["launches"][
@@ -3565,6 +3871,8 @@ def main(argv=None) -> int:
                     "full_farm_launches": full["10d"]["launches"][
                         "fused_mask"],
                     "live_launches": live["11c"]["launches"]["fused_mask"],
+                    "shard_launches": shard["14a"]["kernel_path"][
+                        "launches"]["fused_mask"],
                     "two_kernel_floor_ms": tk["two_kernel_floor_ms"],
                     "md_ms": tk["mask_md_ms"],
                     "md_plain_ms": tk["mask_md_plain_ms"],
@@ -3573,7 +3881,9 @@ def main(argv=None) -> int:
                 "condition_scan": {
                     "ns_per_step": tk["cond_ns_per_step"],
                     "repair_ms": tk["cond_repair_ms"],
-                    "repair_ns_per_step": tk["cond_repair_ns_per_step"]},
+                    "repair_ns_per_step": tk["cond_repair_ns_per_step"],
+                    "shard_launches": shard["14a"]["capture_path"][
+                        "launches"]["condition_scan"]},
                 "fused_v2_scan": resources["v2_scan_kernel"],
                 "fused_v2_mask": resources["v2_mask_kernel"],
                 "serial_probe": resources["serial_probe_kernel"],
@@ -3613,6 +3923,7 @@ def main(argv=None) -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
     if loaded:
         raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"shard": shard}))
     log(json.dumps({"monitor": monitor}))
     log(json.dumps({"logic": logic}))
     log(json.dumps({"live": live}))

@@ -36,7 +36,7 @@ COPIED = [
     "protocol/parser/nfcv.py", "protocol/parser/iso7816.py",
     "protocol/parser/dispatch.py",
     "tools/__init__.py", "tools/analyze.py", "tools/html_report.py",
-    "tools/trace_cli.py", "apps/monitor.py",
+    "tools/trace_cli.py", "apps/monitor.py", "shard/__init__.py",
 ]
 
 # functions and classes copied into modules that are ported, not copied,
@@ -71,6 +71,8 @@ COPIED_FUNCTIONS = [
     ("runtime/pipeline.py", "LogicSourceTask"),
     ("runtime/pipeline.py", "LiveLogicSourceTask"),
     ("dsp/spectrum.py", "make_window"),
+    ("shard/temporal.py", "overlap_save_blocks"),
+    ("shard/temporal.py", "stitch_blocks"),
 ]
 
 # the port's native build is atomic: nfclab's writes the library in place,

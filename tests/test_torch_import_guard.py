@@ -29,6 +29,7 @@ import torch_synth
 import torch_sdr_mocks
 import torch_logic_synth
 import torch_monitor
+import torch_dist_child
 torch_synth.templates()
 torch_monitor.polled_monitor()
 torch_logic_synth.logic_lane(200_000, seed=0)
@@ -83,7 +84,14 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.protocol.parser.dispatch",
                  "nfclab_torch.tools.html_report",
                  "nfclab_torch.tools.trace_cli",
-                 "nfclab_torch.apps.monitor"):
+                 "nfclab_torch.apps.monitor",
+                 "nfclab_torch.shard",
+                 "nfclab_torch.shard.mesh",
+                 "nfclab_torch.shard.temporal",
+                 "nfclab_torch.shard.launch",
+                 "nfclab_torch.shard.multichip",
+                 "nfclab_torch.tools.scaling_bench",
+                 "nfclab_torch.tools.validate_cuda_shard_kernel"):
         assert need in mods
 
 
@@ -96,7 +104,8 @@ def test_port_sources_name_no_jax_or_nfclab_import():
     files = list((ROOT / "nfclab_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sdr_mocks.py",
               ROOT / "tests" / "torch_logic_synth.py",
-              ROOT / "tests" / "torch_monitor.py"]
+              ROOT / "tests" / "torch_monitor.py",
+              ROOT / "tests" / "torch_dist_child.py"]
     for f in files:
         for ln in f.read_text().splitlines():
             assert not pat.match(ln), f"{f}: {ln}"
