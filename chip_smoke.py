@@ -37,13 +37,15 @@ Phases (any failure raises and the script exits non-zero):
    the copy probe at 1024 x 1024 x 3 outputs, fused_v2 at 1024 x 2 chunks
    of 4096 with carried state.
 3. The kernels against their plain versions at the main paths' shape and
-   on their inputs: two [65536, 1024] chunks of the mask path's captures,
-   the second with carried state at a folded clock base, and one 1024 x
-   65536 chunk with carried state for the conditioning kernel; bit-exact
-   again (the mask kernel also with mod_depth), and the conditioning
-   kernel at the repair shape (1 x 65536) equal to stream 0 of that run.
-   Kernel times and ns per step on those inputs (CUDA events over 5
-   launches), the repair shape's too, plain times from the comparison;
+   on their inputs: the second [65536, 1024] chunk of the mask path's
+   captures, from the state the kernels carried out of the first, at a
+   folded clock base (the first [8192, 1024] samples also from fresh
+   state at clock 0), and the second 1024 x 65536 chunk with the state
+   carried the same way for the conditioning kernel; bit-exact again (the
+   mask kernel also with mod_depth), and the conditioning kernel at the
+   repair shape (1 x 65536) equal to stream 0 of that run.  Kernel times
+   and ns per step on those inputs (CUDA events over 5 launches), the
+   repair shape's too, plain times from the comparison;
    the scans' ptxas register and spill lines and shared memory per block,
    the mask kernel's geometry at 10, 3.2 and 40 MS/s.
 4. The mask path at full width: chained_batch_masks over 1024 captures of
@@ -57,7 +59,7 @@ Phases (any failure raises and the script exits non-zero):
    streams x 65536 samples of the mask path's captures (time per call,
    samples/s, peak memory, conditioning launches per call), held against
    the same call on the CPU on 64 of the streams.
-7. The device conditioner on a long capture: condition_jax over 2**24
+7. The device conditioner on a long capture: condition_jax over 2**23
    samples of the templates with long field-off stretches, bit-exact
    against the C++ oracle with its repair count and the time of its host
    edge tracker (from its stats); then the conditioning
@@ -79,12 +81,12 @@ Phases (any failure raises and the script exits non-zero):
    fused_v2's kernels on two 4096 x 16384 chunks with carried state.
 9. The live farm, CudaStreamFarm(fetch="mask", k_chunks=32,
    walk_threads=8), fed 262,144 samples at a time through one reused
-   buffer, each stream 4 windows of 2,097,152 samples plus a 40,960-sample
+   buffer, each stream 3 windows of 2,097,152 samples plus a 40,960-sample
    tail: (a) 64 streams in the default configuration (16 segments, 1024
-   lanes); (c) the same input with segments=1; (b) 16 streams with a
+   lanes); (c) the same input with segments=1; (b) 8 streams with a
    200k-400k-sample field-off stretch across a segment boundary of every
    window after the first, with adaptive_segments False (repairs) and
-   True (backoff); (c) runs the first 16 of (a)'s streams.  Frames equal
+   True (backoff); (c) runs the first 8 of (a)'s streams.  Frames equal
    the host StreamingNfcDecoder's, and on (a) the synthesizer's bytes;
    (c)'s frames equal (a)'s and its
    conditioning rows 0-4 after the last window equal (a)'s segmented
@@ -104,7 +106,7 @@ Phases (any failure raises and the script exits non-zero):
    bytes; (c) decode_batch(frontend="fused") with native and with device
    conditioning, decode_cli run --frontend fused and bench_cli --frontend
    fused --conditioner device on the template WAVs give the native
-   frames; (d) CudaStreamFarm(fetch="full") on the first 16 of 9a's
+   frames; (d) CudaStreamFarm(fetch="full") on the first 8 of 9a's
    streams and their feeds:
    its final state equals a chained fused_frontend's bit for bit; its
    frames equal the host streaming decoder's frames of phase 9, up to
@@ -142,7 +144,7 @@ Phases (any failure raises and the script exits non-zero):
    at a time: equal frames and index sets, equal to the one-shot
    IsoDecoder's and the synthesizer's bytes; samples/s of each; (c)
    CudaLogicFarm(32, 24 MS/s) over 32 lanes (seeds 5000-5031) of
-   4,194,304 samples, fed 262,144 at a time through one reused buffer,
+   2,097,152 samples, fed 262,144 at a time through one reused buffer,
    plain, and the first 16 with the probes permuted under a channel_map
    (CudaLogicFarm(16, ...)): each stream's
    frames equal its lane's one-shot frames and the synthesizer's bytes;
@@ -194,18 +196,49 @@ Phases (any failure raises and the script exits non-zero):
    destroyed; (c) scaling_bench --devices 1 --cuda: step ms,
    samples/s, collective_share, and the fused pair's samples/s a card.
    Each runs alone on the card.
-Depth cut to keep the script inside its time with phase 13 in it: 9c and
-10d run the first 16 of 9a's 64 streams, phase 7's long capture is 2**24
-samples (2**25 before), and 12c's channel-map run takes the first 16 of
-its 32 lanes.
+15. The validation and benchmark tools (nfclab_torch/tools), each with
+   the kernels' counts set to 0 just before and read just after, on
+   seeded inputs in a temporary directory: the template WAVs, four
+   torch_synth lanes of 1,048,576 samples at 10 MS/s, each NFC WAV with
+   the golden JSON of the host frontend's frames beside it, and three
+   8-bit 4-channel logic WAVs at 24 MS/s (sessions of two of nfclab's
+   TPDUs and a logic_lane of 2**22 samples).  Each validator's main must
+   return 0: (a) validate_fused at nfclab's 2048 x 4096; (b)
+   validate_cuda_decode on the template WAVs; (c)
+   validate_rate_parametric on the NFC-A 106k template; (d)
+   validate_cuda_farm on the lanes (full and mask fetch, k_chunks 4 in 2
+   segments, forced repairs, the production 16 segments x 32 chunks on
+   a tiled lane); (e) validate_cuda_logic on the logic WAVs, in this
+   process and again as python -m in a subprocess.  (f) hw_smoke
+   enumerates, then records logicloop://test for 0.3 s to a 4-channel
+   WAV.  (g) e2e_bench --reps 1 on the template WAVs in a child process
+   (tools_child: its host curve forks before CUDA is initialized):
+   link figures, each frontend's
+   samples/s and equal frame counts, the curve.  (h) streaming_bench
+   --total 2000000 --farm-total 262144 on the NFC-A 106k template: the
+   single-stream bench and all six farm configurations of its main.
+Depth cut to keep the script inside its time: 9c and 10d ran the first
+16 of 9a's 64 streams, phase 7's long capture was cut from 2**25 samples
+to 2**24, and 12c's channel-map run takes the first 16 of its 32 lanes
+(for phase 13).  For phase 15: phase 9's streams are 3 windows long (4
+before), which shortens 9a, 9b, 9c, their host references and 10d; 9c
+and 10d run the first 8 of 9a's streams and 9b 8 streams (16 before);
+phase 3 compares the plain versions on the timed second chunk only (both
+chunks before), since the plain versions' per-step launches set its
+time; phase 7's long capture is 2**23 samples (its first 2**21, phase
+14's prefix, are unchanged), and 12c's lanes 2 windows long (4 before).
+Every check stays.
 At the end neither JAX nor nfclab may have been imported.  The line
 before the last is the card's name and power limit; the one before it a
-JSON object with one entry per kernel, the one before that the farm's
-launch counts, the one before that the full-channel path's launch
-counts, the one before that the live path's readings, the one before
-that the logic path's, the one before that the monitor phase's and the
-one before that the shard phase's.  The last line is {"ok": true,
-"device": {...}}.
+JSON object with one entry per kernel (each fused and conditioning
+kernel with its launches in every phase-15 tool), the one before that
+the farm's launch counts, the one before that the full-channel path's
+launch counts, the one before that the live path's readings, the one
+before that the logic path's, the one before that the monitor phase's,
+the one before that the shard phase's and the one before that the
+tools phase's ({"tools": ...}: each tool's seconds, return code and
+launches, the link figures, the streaming and farm rates and the chip
+host's os.cpu_count).  The last line is {"ok": true, "device": {...}}.
 --kernels-only stops after phase 2, for a first call after a kernel
 change.
 """
@@ -232,7 +265,9 @@ SOURCE = "nfclab_torch/csrc/fused_frontend.cu"
 COND_TPU_KERNEL = "nfclab/dsp/pallas/conditioner_kernel.py:31"
 COND_SOURCE = "nfclab_torch/csrc/conditioner.cu"
 COND_OPS = 22             # float and counter operations per sample
-LONG = 1 << 24            # the long capture of phase 7 (1.68 s, 256 blocks)
+LONG = 1 << 23            # the long capture of phase 7 (0.84 s, 128 blocks;
+                          # 2**24 before phase 15)
+FRESH_CMP = 8192          # phase 3: samples of the fresh-state comparison
 DENSE_CPU_STREAMS = 64    # streams of phase 6's CPU comparison
 V2_SOURCE = "nfclab_torch/csrc/fused_v2.cu"
 PROBE_SOURCE = "nfclab_torch/csrc/probes.cu"
@@ -250,11 +285,13 @@ BOUNDARY_SLICE = 1 << 18    # fused_scan streams a call there (its state is
 BOUNDARY_V2 = 1 << 18       # v2_scan streams there (1285 state rows each)
 BOUNDARY_PROBE = (1 << 20) + 7  # serial_probe lanes there
 FARM_STREAMS = 64         # phase 9a: x 16 segments = the 1024-lane policy
-FARM_CUT = 16             # 9c and 10d: the first 16 of 9a's streams
-FARM_WINDOWS = 4          # full windows a stream, then the tail
+FARM_CUT = 8              # 9c and 10d: the first 8 of 9a's streams (16
+                          # before phase 15)
+FARM_WINDOWS = 3          # full windows a stream, then the tail (4 before
+                          # phase 15)
 FARM_TAIL = 40_960        # the sub-chunk tail that finish() walks on the host
 FARM_FEED = 262_144       # samples a feed
-PAUSE_STREAMS = 16        # phase 9b
+PAUSE_STREAMS = 8         # phase 9b (16 before phase 15)
 PAUSE_LEAD = (70_000, 130_000)   # 9b: a pause starts this far before its
 PAUSE_LEN = (200_000, 400_000)   # segment boundary and lasts this long
 
@@ -1022,13 +1059,14 @@ def _event_ms(fn, reps):
 
 def check_main_shape(dev, caps, errs):
     """Both kernels against their plain versions at the main path's shape,
-    on its own inputs: [65536, 1024] chunks of the main path's captures
-    with its mask params, chunk 0 from fresh state at clock 0 and chunk 1
-    with the state carried from chunk 0 at a folded clock base
-    (mod + lo % mod, where the engine's later windows start); on each
-    chunk the mask kernel again with mod_depth.  Kernel times are taken on
-    chunk 1's inputs, plain times from its comparison run.  Returns the
-    times, each kernel's bound and the mask's two-kernel floors."""
+    on its own inputs with its mask params: the captures' second [65536,
+    1024] chunk from the state the kernels carried out of the first, at a
+    folded clock base (mod + lo % mod, where the engine's later windows
+    start), the mask kernel with detect_mask alone and again with
+    mod_depth.  The kernel times are taken on those inputs and the plain
+    times come from that comparison.  Fresh state at clock 0 is held on
+    the captures' first [FRESH_CMP, 1024] samples.  Returns the times,
+    each kernel's bound and the mask's two-kernel floors."""
     import numpy as np
     import torch
 
@@ -1042,22 +1080,24 @@ def check_main_shape(dev, caps, errs):
     mod = plan.fold_modulus
     hist = torch.zeros(plan.nstate, dtype=torch.bool, device=dev)
     hist[lay.hist_off : lay.hist_off + lay.hist_rows] = True
-    st_k = torch.zeros(plan.nstate, STREAMS, device=dev)
-    st_p = st_k.clone()
-    t = {}
-    for c, base in enumerate((0, mod + chunk % mod)):
-        x_tm = torch.from_numpy(np.stack(
-            [cp[c * chunk : (c + 1) * chunk] for cp in caps], 1)).to(dev)
-        st_in = st_k
-        deps_k, _, so_k = ff.fused_scan(x_tm, st_k, base, pt, plan)
-        mk_k = ff.fused_mask(deps_k, x_tm, st_k, so_k, mp, plan)
+
+    def tm(lo, n):
+        return torch.from_numpy(np.stack([cp[lo : lo + n] for cp in caps],
+                                         1)).to(dev)
+
+    def compare(x_tm, st, base, what):
+        """Both kernels and their plain versions on x_tm from state st;
+        returns the kernels' deps and state, and the plain times."""
+        t = {}
+        deps_k, _, so_k = ff.fused_scan(x_tm, st, base, pt, plan)
+        mk_k = ff.fused_mask(deps_k, x_tm, st, so_k, mp, plan)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        deps_p, _, so_p = ff._scan_plain(x_tm, st_p, base, pt, plan)
+        deps_p, _, so_p = ff._scan_plain(x_tm, st, base, pt, plan)
         torch.cuda.synchronize()
         t["scan_plain_ms"] = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        mk_p = ff._mask_plain(deps_p, x_tm, st_p, so_p, mp, plan)
+        mk_p = ff._mask_plain(deps_p, x_tm, st, so_p, mp, plan)
         torch.cuda.synchronize()
         t["mask_plain_ms"] = (time.perf_counter() - t0) * 1e3
         # the scan owns the carry, rings and sums; the mask the histories
@@ -1066,37 +1106,46 @@ def check_main_shape(dev, caps, errs):
                  ("fused_mask", "detect_mask", mk_k["detect_mask"],
                   mk_p["detect_mask"]),
                  ("fused_mask", "state", so_k[hist], so_p[hist]))
-        for name, what, a, b in pairs:
+        for name, part, a, b in pairs:
             e = _err(a.float(), b.float())
             errs[name] = max(errs[name], e)
             if not _same(a, b):
-                raise AssertionError(
-                    f"{name} {what} != plain at the main path's shape, "
-                    f"chunk {c} (base {base}): max err {e}")
-        log(f"kernels == plain (bit-exact) at {STREAMS} streams x {chunk}, "
-            f"chunk {c}, base {base}, select=('detect_mask',)")
+                raise AssertionError(f"{name} {part} != plain on {what}: "
+                                     f"max err {e}")
+        log(f"kernels == plain (bit-exact) on {what}, "
+            "select=('detect_mask',)")
         # the mask kernel with mod_depth too, on the same inputs
         so_md, so_pmd = so_k.clone(), so_p.clone()
-        mk_md = ff.fused_mask(deps_k, x_tm, st_in, so_md, mp, plan, True,
-                              True)
+        mk_md = ff.fused_mask(deps_k, x_tm, st, so_md, mp, plan, True, True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mk_pmd = ff._mask_plain(deps_p, x_tm, st_p, so_pmd, mp, plan, True,
+        mk_pmd = ff._mask_plain(deps_p, x_tm, st, so_pmd, mp, plan, True,
                                 True)
         torch.cuda.synchronize()
         t["mask_md_plain_ms"] = (time.perf_counter() - t0) * 1e3
-        for what, a, b in (("detect_mask", mk_md["detect_mask"],
+        for part, a, b in (("detect_mask", mk_md["detect_mask"],
                             mk_pmd["detect_mask"]),
                            ("mod_depth", mk_md["mod_depth"],
                             mk_pmd["mod_depth"]),
                            ("state", so_md[hist], so_pmd[hist])):
-            _hold(errs, "fused_mask", a, b,
-                  f"{what} with mod_depth at the main path's shape, chunk "
-                  f"{c} (base {base})")
-        log(f"fused_mask == plain (bit-exact) at {STREAMS} streams x "
-            f"{chunk}, chunk {c}, select=('detect_mask', 'mod_depth')")
-        st_k, st_p = so_k, so_p
-        del deps_p, so_p, mk_p, so_md, so_pmd, mk_md, mk_pmd
+            _hold(errs, "fused_mask", a, b, f"{part} with mod_depth on {what}")
+        log(f"fused_mask == plain (bit-exact) on {what}, "
+            "select=('detect_mask', 'mod_depth')")
+        return deps_k, so_k, t
+
+    st0 = torch.zeros(plan.nstate, STREAMS, device=dev)
+    compare(tm(0, FRESH_CMP), st0, 0,
+            f"{STREAMS} streams x {FRESH_CMP}, fresh state at clock 0")
+    # the main path's shape: the second [65536, 1024] chunk, from the
+    # state the kernels carried out of the first
+    x_tm = tm(0, chunk)
+    deps_k, _, st_in = ff.fused_scan(x_tm, st0, 0, pt, plan)
+    ff.fused_mask(deps_k, x_tm, st0, st_in, mp, plan)
+    base = mod + chunk % mod
+    x_tm = tm(chunk, chunk)
+    deps_k, so_k, t = compare(
+        x_tm, st_in, base,
+        f"{STREAMS} streams x {chunk}, carried state at base {base}")
     so_t = so_k.clone()
     t["scan_ms"] = _event_ms(
         lambda: ff.fused_scan(x_tm, st_in, base, pt, plan), 5)
@@ -2456,7 +2505,8 @@ LOGIC_RATE = 24_000_000   # phase 12: the logic tests' rate, 4 MHz card clock
 LOGIC_STREAMS = 32        # 12c: CudaLogicFarm's streams
 LOGIC_MAP_STREAMS = 16    # 12c under a channel map: the first 16 lanes
 LOGIC_WINDOW = 1 << 20    # TpuLogicFarm's default k_samples
-LOGIC_LANE = 4 * LOGIC_WINDOW   # 12c: 175 ms of capture a stream
+LOGIC_LANE = 2 * LOGIC_WINDOW   # 12c: 87 ms of capture a stream (4
+                                # windows before phase 15)
 LOGIC_ONE = 1 << 24       # 12b and 12d's live run: one stream, 0.70 s
 LOGIC_BLOCK = 65536       # 12b: LogicSourceTask's block
 LOGIC_FEED = 262_144      # 12c: samples a feed
@@ -3412,6 +3462,226 @@ def run_shard_phase(templates, host_frames, out_dir):
     return out
 
 
+TOOLS_LANES = 4           # phase 15: NFC lanes of validate_cuda_farm
+TOOLS_LANE = 1 << 20      # their samples: 4 windows at k_chunks 4
+TOOLS_LOGIC_LANE = 1 << 22   # samples of the logic lane (24 MS/s)
+TOOLS_LOGIC_TPDUS = (     # nfclab's validate_tpu_logic TPDUs
+    (0x00, 0xA4, 0x04, 0x00, 0x02, 0xA4, 0x3F, 0x00, 0x90, 0x00),
+    (0x00, 0xB0, 0x00, 0x08, 0x00, 0x6A, 0x82),
+)
+TOOLS_STREAMING = ("--total", "2000000", "--farm-total", "262144")
+
+
+def _tool_kernels():
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp.conditioner_kernel import COND
+
+    return (*ff.KERNELS, COND)
+
+
+def tools_child(out_path, name, *argv) -> int:
+    """run_tool(name, argv) in a child process of its own, so that CUDA
+    starts there only when the tool starts it; writes its reading to
+    out_path."""
+    run, _ = run_tool(name, argv)
+    Path(out_path).write_text(json.dumps(run))
+    return 0
+
+
+def run_tool(name, argv, need=()):
+    """nfclab_torch.tools.<name>.main(argv) in this process, its standard
+    output captured (and logged indented), the kernels' counts set to 0
+    just before and read just after; main must return 0 and each kernel
+    in `need` must have run.  Returns ({"rc", "s", "launches"}, output)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"nfclab_torch.tools.{name}")
+    kernels = _tool_kernels()
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main([str(a) for a in argv])
+    out = {"rc": rc, "s": time.perf_counter() - t0,
+           "launches": {k.name: k.launches for k in kernels}}
+    for ln in buf.getvalue().splitlines():
+        log("  " + ln[:400])
+    if rc != 0:
+        raise AssertionError(f"15 {name} {' '.join(map(str, argv))} "
+                             f"returned {rc}")
+    for kname in need:
+        if out["launches"][kname] <= 0:
+            raise AssertionError(f"15 {name}: kernel {kname} never ran")
+    log(f"15 {name}: {json.dumps(out)}")
+    return out, buf.getvalue()
+
+
+def tools_inputs(templates, tmp):
+    """Phase 15's seeded inputs under tmp: templates/ (each template as a
+    16-bit WAV), lanes/ (TOOLS_LANES torch_synth lanes of TOOLS_LANE
+    samples), each NFC WAV with the golden JSON of the host frontend's
+    frames of what it holds beside it; logic/ (8-bit 4-channel sessions
+    of nfclab's TPDUs and one logic_lane)."""
+    from torch_logic_synth import SAMPLE_RATE, logic_lane, make_session
+    from torch_synth import lane
+
+    from nfclab_torch.io.golden import write_golden_frames
+    from nfclab_torch.io.wav import read_wav, write_wav
+    from nfclab_torch.runtime.decoder import NfcDecoder
+
+    def nfc(path, x):
+        write_wav(str(path), x, RATE)
+        samples, _ = read_wav(str(path))
+        write_golden_frames(str(path.with_suffix(".json")),
+                            NfcDecoder().decode(samples, RATE))
+        return str(path)
+
+    paths = {}
+    for sub in ("templates", "lanes", "logic"):
+        (tmp / sub).mkdir()
+    paths["templates"] = [nfc(tmp / "templates" / f"{tp.name}.wav",
+                              tp.samples) for tp in templates]
+    paths["lanes"] = [
+        nfc(tmp / "lanes" / f"lane{i}.wav",
+            lane(templates[i % len(templates)], TOOLS_LANE,
+                 seed=6000 + i)[0])
+        for i in range(TOOLS_LANES)]
+    logic = [make_session(atr=(0x3B, 0x00), tpdu=list(t))
+             for t in TOOLS_LOGIC_TPDUS]
+    logic.append(logic_lane(TOOLS_LOGIC_LANE, seed=6100)[0])
+    paths["logic"] = []
+    for i, x in enumerate(logic):
+        paths["logic"].append(str(tmp / "logic" / f"logic{i}.wav"))
+        write_wav(paths["logic"][-1], x, SAMPLE_RATE, bits=8)
+    return paths
+
+
+def run_tools_phase(templates):
+    """Phase 15: every tool of nfclab_torch/tools on the card, on seeded
+    inputs (tools_inputs): (a) validate_fused at nfclab's 2048 x 4096;
+    (b) validate_cuda_decode on the template WAVs; (c)
+    validate_rate_parametric on the NFC-A 106k template; (d)
+    validate_cuda_farm on the lanes (full and mask fetch, k_chunks 4 in 2
+    segments, the forced repairs, the production 16 x 32); (e)
+    validate_cuda_logic on the logic WAVs, in this process and as
+    python -m in a subprocess; (f) hw_smoke, bare and recording
+    logicloop://test to a WAV; (g) e2e_bench --reps 1 on the template
+    WAVs in a child process (tools_child: CUDA untouched until its host
+    curve has run); (h)
+    streaming_bench with TOOLS_STREAMING, which reaches the single-stream
+    bench and every farm configuration of its main.  Each in-process run
+    has the kernels' counts set to 0 just before and read just after."""
+    import os
+    import tempfile
+
+    from nfclab_torch.io.wav import read_wav
+
+    t0 = time.perf_counter()
+    fused = ("fused_scan", "fused_mask")
+    out = {"card": card_line(), "cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = tools_inputs(templates, tmp)
+        out["inputs_s"] = time.perf_counter() - t0
+        out["validate_fused"], _ = run_tool(
+            "validate_fused", [], need=(*fused, "condition_scan"))
+        out["validate_cuda_decode"], _ = run_tool(
+            "validate_cuda_decode", paths["templates"], need=fused)
+        out["validate_rate_parametric"], _ = run_tool(
+            "validate_rate_parametric", paths["templates"][:1], need=fused)
+        out["validate_cuda_farm"], text = run_tool(
+            "validate_cuda_farm", paths["lanes"], need=fused)
+        # full, mask and segmented on each lane, 2 pause and 2 tiled streams
+        if text.count(": OK (") != 3 * TOOLS_LANES + 2 + 2:
+            raise AssertionError("15d validate_cuda_farm ran fewer checks "
+                                 "than its four")
+        out["validate_cuda_logic"], _ = run_tool(
+            "validate_cuda_logic", paths["logic"])
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nfclab_torch.tools.validate_cuda_logic",
+             *paths["logic"]],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        if proc.returncode != 0 or not proc.stdout.endswith("PASS\n"):
+            raise AssertionError(f"15e python -m validate_cuda_logic: "
+                                 f"{proc.returncode}\n{proc.stderr[-4000:]}")
+        out["validate_cuda_logic_m"] = {"rc": proc.returncode,
+                                        "s": time.perf_counter() - t1}
+        log(f"15e python -m validate_cuda_logic: "
+            f"{json.dumps(out['validate_cuda_logic_m'])}")
+
+        hw, text = run_tool("hw_smoke", [])
+        listing = json.loads(text.splitlines()[0])
+        if not listing["native"] or "logicloop" not in listing["drivers"]:
+            raise AssertionError(f"15f hw_smoke listing: {listing}")
+        wav = tmp / "hw_smoke.wav"
+        hw2, text = run_tool("hw_smoke", ["--capture", "logicloop://test",
+                                          "--seconds", "0.3", "--out", wav])
+        rec = json.loads(text.splitlines()[1])
+        samples, info = read_wav(str(wav))
+        if (not rec["opened"] or rec["samples"] <= 0
+                or info.channels != 4 or len(samples) != rec["samples"]):
+            raise AssertionError(f"15f hw_smoke capture: {rec}")
+        out["hw_smoke"] = {"enumerate": hw, "capture": hw2,
+                           "capture_samples": rec["samples"],
+                           "drivers": sorted(listing["drivers"])}
+
+        t1 = time.perf_counter()
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke.tools_child("
+                "*sys.argv[1:]))")
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(tmp / "e2e_run.json"),
+             "e2e_bench", str(tmp / "templates"),
+             "--reps", "1", "--out", str(tmp / "e2e.json")],
+            capture_output=True, text=True, cwd=ROOT, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"15g e2e_bench failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        run = json.loads((tmp / "e2e_run.json").read_text())
+        e2e = json.loads((tmp / "e2e.json").read_text())
+        if run["launches"]["fused_scan"] <= 0 or not e2e["link"]:
+            raise AssertionError(f"15g e2e_bench: {run}, {e2e['link']}")
+        curve = e2e["aggregate_scaling"]["curve"]
+        out["e2e_bench"] = {
+            "rc": run["rc"], "s": run["s"],
+            "wall_s": time.perf_counter() - t1,
+            "launches": run["launches"],
+            "link": e2e["link"],
+            "modes": {fe: r["value"] for fe, r in e2e["modes"].items()},
+            "frames": {fe: r["frames"] for fe, r in e2e["modes"].items()},
+            "curve": {c["config"]: c["value"] for c in curve},
+            "cpu_capacity": e2e["aggregate_scaling"]["cpu_capacity"]}
+        if len(set(out["e2e_bench"]["frames"].values())) != 1:
+            raise AssertionError(f"15g e2e_bench frames differ by "
+                                 f"frontend: {out['e2e_bench']['frames']}")
+        log(f"15g e2e_bench: {json.dumps(out['e2e_bench'])}")
+
+        run, _ = run_tool(
+            "streaming_bench", ["--wav", paths["templates"][0],
+                                *TOOLS_STREAMING, "--out",
+                                tmp / "streaming.json"], need=fused)
+        st = json.loads((tmp / "streaming.json").read_text())
+        from nfclab_torch.tools.streaming_bench import FARM_CONFIGS
+
+        want = {"single_stream_windowed_dense",
+                "single_stream_windowed_sparse",
+                *(key for key, _, _ in FARM_CONFIGS)}
+        if set(st) != want or any(r["value"] <= 0 for r in st.values()):
+            raise AssertionError(f"15h streaming_bench: {sorted(st)}")
+        out["streaming_bench"] = dict(run, rates={
+            key: {"value": r["value"],
+                  "sustained": r["sustained_samples_per_second"],
+                  "frames": r["frames"], "stages": r.get("stages")}
+            for key, r in st.items()})
+        link = st["farm_cuda"]["link_at_bench"]
+        out["streaming_bench"]["link_at_bench"] = link
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def check_v2(dev, streams, chunk, errs, seed, timed=False):
     """fused_v2's kernels against their plain versions over two chunks of
     mixed lanes with carried state (clocks from 40): the two-kernel chain
@@ -3747,21 +4017,29 @@ def main(argv=None) -> int:
     log(f"native build: {time.perf_counter() - t0:.1f} s")
 
     # 2. kernels vs plain, bit-exact, two rates; C++ oracle
+    t_phase = time.perf_counter()
     errs = {name: 0.0 for name in (
         "fused_scan", "fused_mask", "condition_scan", "fused_v2_scan",
         "fused_v2_mask", "serial_probe", "pair_probe", "copy_probe")}
-    x, outs = check_kernels(dev, RATE, CHECK_CHUNK, 2, errs)
+
+    def timed(fn, *a):
+        t = time.perf_counter()
+        res = fn(dev, *a, errs)
+        log(f"  {fn.__name__}{tuple(a)} took {time.perf_counter() - t:.1f} s")
+        return res
+
+    x, outs = timed(check_kernels, RATE, CHECK_CHUNK, 2)
     check_oracle(x, outs, RATE)
-    check_kernels(dev, 3_200_000, CHECK_CHUNK, 2, errs)
-    check_kernels(dev, 40_000_000, CHECK_CHUNK, 2, errs)
+    timed(check_kernels, 3_200_000, CHECK_CHUNK, 2)
+    timed(check_kernels, 40_000_000, CHECK_CHUNK, 2)
     del x, outs
     for rate in (RATE, 3_200_000):
-        check_condition_kernel(dev, rate, CHECK_CHUNK, 2, errs)
-        check_boundary(dev, rate, errs)
-    check_boundary_experiments(dev, errs)
-    check_ff_mask_boundary(dev, errs)
-    check_segmented_shapes(dev, errs)
-    check_experiment_kernels(dev, errs)
+        timed(check_condition_kernel, rate, CHECK_CHUNK, 2)
+        timed(check_boundary, rate)
+    for fn in (check_boundary_experiments, check_ff_mask_boundary,
+               check_segmented_shapes, check_experiment_kernels):
+        timed(fn)
+    log(f"phase 2 took {time.perf_counter() - t_phase:.1f} s")
     if args.kernels_only:
         log(json.dumps({"max_abs_err": errs}))
         return 0
@@ -3769,6 +4047,7 @@ def main(argv=None) -> int:
     # 3. kernels vs plain at the main path's shape, on its captures; times
     from torch_synth import templates as make_templates
 
+    t_phase = time.perf_counter()
     tpls = make_templates()
     t0 = time.perf_counter()
     caps, reps = build_lanes(tpls)
@@ -3778,6 +4057,7 @@ def main(argv=None) -> int:
     tk.update(check_condition_main_shape(dev, caps, errs))
     log(f"times at {STREAMS} x 65536 (ms): {json.dumps(tk)}")
     resources = log_scan_resources(kbuild)
+    log(f"phase 3 took {time.perf_counter() - t_phase:.1f} s")
 
     # 4. the main path at full width
     res, dt, launches, peak, steps = run_main_path(caps)
@@ -3795,20 +4075,26 @@ def main(argv=None) -> int:
         f"{len(counts)} streams over it, most triggers {max(counts)}")
 
     # 5. frames
+    t_phase = time.perf_counter()
     check_decode(caps, reps, res, tpls)
     del res
     out_dir = check_cli(tpls)
+    log(f"phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
     # 6. the dense frontend at full width
+    t_phase = time.perf_counter()
     dense = run_dense_frontend(dev, caps)
     # phase 10a's captures: the first FULL_CHUNKS chunks of these lanes
     caps2 = [c[: FULL_CHUNKS * 65536].copy() for c in caps]
     del caps
     log(f"dense frontend {STREAMS} x 65536 at {RATE} Hz: {json.dumps(dense)}")
+    log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
     # 7. the device conditioner and its callers
+    t_phase = time.perf_counter()
     cpath, cond_launches, host7 = run_conditioner_path(tpls, out_dir)
     log(f"conditioning path: {json.dumps(cpath)}")
+    log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
     # 8. the experiments/ counterparts at full width
     t0 = time.perf_counter()
@@ -3852,6 +4138,12 @@ def main(argv=None) -> int:
     del host7
     log(f"phase 14 took {shard['phase_s']:.1f} s")
 
+    # 15. the validation and benchmark tools
+    tools = run_tools_phase(tpls)
+    log(f"phase 15 took {tools['phase_s']:.1f} s")
+    tool_runs = {name: r for name, r in tools.items()
+                 if isinstance(r, dict) and "launches" in r}
+
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
                     "repair_ms": farm["repair"]["scan_kernel_ms"],
@@ -3863,7 +4155,9 @@ def main(argv=None) -> int:
                         "fused_scan"],
                     "live_launches": live["11c"]["launches"]["fused_scan"],
                     "shard_launches": shard["14a"]["kernel_path"][
-                        "launches"]["fused_scan"]},
+                        "launches"]["fused_scan"],
+                    "tools_launches": {t: r["launches"]["fused_scan"]
+                                       for t, r in tool_runs.items()}},
                 "fused_mask": {
                     "repair_ms": farm["repair"]["mask_kernel_ms"],
                     "full_path_launches": full["10a"]["launches"][
@@ -3873,6 +4167,8 @@ def main(argv=None) -> int:
                     "live_launches": live["11c"]["launches"]["fused_mask"],
                     "shard_launches": shard["14a"]["kernel_path"][
                         "launches"]["fused_mask"],
+                    "tools_launches": {t: r["launches"]["fused_mask"]
+                                       for t, r in tool_runs.items()},
                     "two_kernel_floor_ms": tk["two_kernel_floor_ms"],
                     "md_ms": tk["mask_md_ms"],
                     "md_plain_ms": tk["mask_md_plain_ms"],
@@ -3883,7 +4179,9 @@ def main(argv=None) -> int:
                     "repair_ms": tk["cond_repair_ms"],
                     "repair_ns_per_step": tk["cond_repair_ns_per_step"],
                     "shard_launches": shard["14a"]["capture_path"][
-                        "launches"]["condition_scan"]},
+                        "launches"]["condition_scan"],
+                    "tools_launches": {t: r["launches"]["condition_scan"]
+                                       for t, r in tool_runs.items()}},
                 "fused_v2_scan": resources["v2_scan_kernel"],
                 "fused_v2_mask": resources["v2_mask_kernel"],
                 "serial_probe": resources["serial_probe_kernel"],
@@ -3923,6 +4221,7 @@ def main(argv=None) -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "nfclab"))
     if loaded:
         raise AssertionError(f"JAX or nfclab was imported: {loaded[:5]}")
+    log(json.dumps({"tools": tools}))
     log(json.dumps({"shard": shard}))
     log(json.dumps({"monitor": monitor}))
     log(json.dumps({"logic": logic}))

@@ -37,6 +37,7 @@ COPIED = [
     "protocol/parser/dispatch.py",
     "tools/__init__.py", "tools/analyze.py", "tools/html_report.py",
     "tools/trace_cli.py", "apps/monitor.py", "shard/__init__.py",
+    "tools/hw_smoke.py",
 ]
 
 # functions and classes copied into modules that are ported, not copied,
@@ -73,6 +74,9 @@ COPIED_FUNCTIONS = [
     ("dsp/spectrum.py", "make_window"),
     ("shard/temporal.py", "overlap_save_blocks"),
     ("shard/temporal.py", "stitch_blocks"),
+    ("tools/validate_rate_parametric.py", "_resampled"),
+    ("tools/e2e_bench.py", "_burn"),
+    ("tools/e2e_bench.py", "_cpu_capacity"),
 ]
 
 # the port's native build is atomic: nfclab's writes the library in place,

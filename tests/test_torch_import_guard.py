@@ -91,7 +91,16 @@ def test_port_imports_no_jax_and_no_nfclab():
                  "nfclab_torch.shard.launch",
                  "nfclab_torch.shard.multichip",
                  "nfclab_torch.tools.scaling_bench",
-                 "nfclab_torch.tools.validate_cuda_shard_kernel"):
+                 "nfclab_torch.tools.validate_cuda_shard_kernel",
+                 "nfclab_torch.tools.hw_smoke",
+                 "nfclab_torch.tools.validate_fused",
+                 "nfclab_torch.tools.validate_cuda_decode",
+                 "nfclab_torch.tools.validate_rate_parametric",
+                 "nfclab_torch.tools.validate_cuda_farm",
+                 "nfclab_torch.tools.validate_cuda_logic",
+                 "nfclab_torch.tools.e2e_bench",
+                 "nfclab_torch.tools.streaming_bench",
+                 "nfclab_torch.tools.fixtures"):
         assert need in mods
 
 
