@@ -340,7 +340,9 @@ def cmd_live(args) -> int:
     adds nfclab's monitor: FourierTask (the spectrum on --device),
     ResamplingTask and the MonitorServer on the bus.  Exits 1 when the
     decoder task, FourierTask or ResamplingTask ends in error (a failed
-    dispatch of the mask frontend, say): frames stop there."""
+    dispatch of the mask frontend, say): frames stop there.
+    ``--trace-out PATH`` records the live path's spans (runtime/trace)
+    and writes them to PATH as Chrome-trace JSON at exit."""
     import queue as _queue
 
     from ..hw.device import (
@@ -430,6 +432,10 @@ def cmd_live(args) -> int:
     except ValueError:
         pass  # non-main thread (embedded use): keep default
 
+    if args.trace_out:
+        from ..runtime import trace
+
+        trace.enable()
     monitor = None
     ex = Executor(pool_size=4)
     if monitor_tasks:
@@ -504,6 +510,10 @@ def cmd_live(args) -> int:
         ex.shutdown()
         if monitor is not None:
             monitor.stop()
+        if args.trace_out:
+            trace.disable()
+            n = trace.export(args.trace_out)
+            print(f"# trace: {n} spans in {args.trace_out}", file=sys.stderr)
     print(f"# {count} frames", file=sys.stderr)
     if failed is not None:
         print(f"error: {failed['task']} task failed: {failed['error']}",
@@ -629,6 +639,12 @@ def main(argv=None) -> int:
         help="desired decoder config file (app-rx reconciliation: Query "
         "the running task, diff, Configure only the changes; 'decoder' "
         "section with powerLevelThreshold + protocol subtree)",
+    )
+    p.add_argument(
+        "--trace-out", metavar="PATH", default=None,
+        help="record the live path's spans (the decoder task's queue, "
+        "feed and publish; the farm's staging, IO thread, device steps "
+        "and walk) and write them to PATH as Chrome-trace JSON at exit",
     )
     p.set_defaults(fn=cmd_live)
     args = ap.parse_args(argv)

@@ -29,6 +29,7 @@ raise.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -245,6 +246,76 @@ class StepTimes(dict):
         self._t = now
 
 
+class StepSums:
+    """The live farm's lap, always on: each step of the mask engines adds
+    its host seconds to a counter of `stats` with no device sync, and is a
+    span (runtime/trace) while spans record.  The steps tile the pass from
+    `t0`: a step counts from the previous step's end to its own, so the
+    kernels enqueued without a sync count in the step that waits for
+    them (``compact``: its torch.nonzero blocks until the window's kernels
+    end).  Seconds by counter: ``upload_s`` (samples, halo tail, carried
+    state), ``launch_s`` (enqueueing the chunk loop), ``compact_s``,
+    ``fetch_s`` (counts, trigger prefixes, overflow rows, carry rows,
+    assembly), ``verify_s`` (the segment boundary check) and ``repair_s``
+    (each repair whole: its own steps are spans under it, counted there
+    alone)."""
+
+    COUNTERS = {"upload": "upload_s", "chunks": "launch_s",
+                "compact": "compact_s", "fetch": "fetch_s",
+                "overflow_rows": "fetch_s", "assemble": "fetch_s",
+                "carry": "fetch_s", "verify": "verify_s",
+                "repair": "repair_s"}
+    SPANS = {"chunks": "launch", "overflow_rows": "fetch",
+             "assemble": "fetch"}
+
+    def __init__(self, stats: dict | None, t0: float, seq: int | None = None):
+        from ..runtime import trace
+
+        self.stats = stats    # None: spans only (a repair's nested steps)
+        self.seq = seq
+        self._t = t0
+        self._open = None
+        self._trace = trace
+
+    def begin(self, step: str, **args) -> None:
+        if self._trace.active():
+            self._open = self._trace.span(self.SPANS.get(step, step),
+                                          seq=self.seq, **args).__enter__()
+
+    def __call__(self, step: str) -> None:
+        now = time.perf_counter()
+        if self.stats is not None:
+            self.stats[self.COUNTERS[step]] += now - self._t
+        self._t = now
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+
+    def nested(self):
+        """The lap of an engine call inside this step (a repair's serial
+        chain): its steps are spans while spans record, counted in the
+        step alone."""
+        if not self._trace.active():
+            return _no_lap
+        return StepSums(None, time.perf_counter(), self.seq)
+
+
+@contextlib.contextmanager
+def _step(lap, step: str, **args):
+    """One step of an engine: the lap's ``begin`` where it has one (a
+    StepSums opens the step's span), the lap at its end."""
+    begin = getattr(lap, "begin", None)
+    if begin is not None:
+        begin(step, **args)
+    yield
+    lap(step)
+
+
+def _nested(lap):
+    nested = getattr(lap, "nested", None)
+    return _no_lap if nested is None else nested()
+
+
 def _stage(caps: list, lo: int, width: int, live: int) -> np.ndarray:
     """[live, width] f32 host block of the live captures from sample lo,
     zero-padded past each capture's end."""
@@ -284,29 +355,29 @@ def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int, lap=_no_lap):
     rows that overflow the cap, gathered on the device and moved in one
     transfer."""
     n_live = mm.shape[0]
-    cnt_h = cnt.cpu().numpy()
-    over = np.flatnonzero(cnt_h > cap)
-    idx_h = bits_h = None
-    if len(over) < n_live:
-        width = int(min(cap, cnt_h.max()))
-        idx_h = idx[:, :width].cpu().numpy()
-        bits_h = bits[:, :width].cpu().numpy()
-    lap("fetch")
-    dense = {}
-    if len(over):
-        rows = mm[torch.from_numpy(over).to(mm.device)].cpu().numpy()
-        for i, row in zip(over.tolist(), rows):
-            rel = np.flatnonzero(row).astype(np.int64)
-            dense[i] = (rel, row[rel])
-    lap("overflow_rows")
-    out = []
-    for i in range(n_live):
-        if i in dense:
-            out.append(dense[i])
-        else:
-            c = int(cnt_h[i])
-            out.append((idx_h[i][:c].astype(np.int64), bits_h[i][:c]))
-    lap("assemble")
+    with _step(lap, "fetch"):
+        cnt_h = cnt.cpu().numpy()
+        over = np.flatnonzero(cnt_h > cap)
+        idx_h = bits_h = None
+        if len(over) < n_live:
+            width = int(min(cap, cnt_h.max()))
+            idx_h = idx[:, :width].cpu().numpy()
+            bits_h = bits[:, :width].cpu().numpy()
+    with _step(lap, "overflow_rows"):
+        dense = {}
+        if len(over):
+            rows = mm[torch.from_numpy(over).to(mm.device)].cpu().numpy()
+            for i, row in zip(over.tolist(), rows):
+                rel = np.flatnonzero(row).astype(np.int64)
+                dense[i] = (rel, row[rel])
+    with _step(lap, "assemble"):
+        out = []
+        for i in range(n_live):
+            if i in dense:
+                out.append(dense[i])
+            else:
+                c = int(cnt_h[i])
+                out.append((idx_h[i][:c].astype(np.int64), bits_h[i][:c]))
     return out
 
 
@@ -336,7 +407,7 @@ def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
     streams are fed zeros).  Returns (per-stream list of (rel_idx i64,
     bits u8), state_out).  Streams whose trigger count overflows the
     compaction cap take their dense mask row instead.  `lap` ends each
-    step (see StepTimes).
+    step (see StepTimes, StepSums).
 
     want_carry=True additionally returns {"pen", "end"}: host
     [n_live, nstate] state rows one chunk before the window's end and at
@@ -355,18 +426,19 @@ def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
         raise ValueError(f"{n_live} rows for a state of {state.shape[0]} "
                          "streams")
     plan = kernel_plan(sample_rate)
-    x = upload_samples(blocks, dev)
-    lap("upload")
-    mm, st, pen = _run_chunks(x, state.t().contiguous(), base0, pt, mp,
-                              plan, chunk)
-    del x
-    lap("chunks")
-    idx, bits, cnt = _compact(mm, cap)
-    lap("compact")
+    with _step(lap, "upload"):
+        x = upload_samples(blocks, dev)
+    with _step(lap, "chunks"):
+        mm, st, pen = _run_chunks(x, state.t().contiguous(), base0, pt, mp,
+                                  plan, chunk)
+        del x
+    with _step(lap, "compact"):
+        idx, bits, cnt = _compact(mm, cap)
     per = _fetch(mm, idx, bits, cnt, cap, lap)
     if want_carry:
-        carry = {"pen": _state_rows(pen, n=n_live),
-                 "end": _state_rows(st, n=n_live)}
+        with _step(lap, "carry"):
+            carry = {"pen": _state_rows(pen, n=n_live),
+                     "end": _state_rows(st, n=n_live)}
         return per, st.t().contiguous(), carry
     return per, st.t().contiguous()
 
@@ -419,7 +491,7 @@ _NVER = 5  # verified carry rows: env, w1, mdev, avg, pulse-count
 
 def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
                      carry_in: torch.Tensor, pt, mp, plan, S: int, B: int,
-                     chunk: int, base: int, cap: int) -> dict:
+                     chunk: int, base: int, cap: int, lap=_no_lap) -> dict:
     """The device stage of run_segmented_masks: x [n_live, S*B*chunk],
     tail [n_live, chunk] and carry_in [n_live, nstate] on the device ->
     {"mm": [n_lanes, B*chunk] u8, "idx"/"bits"/"cnt" (its compaction),
@@ -431,7 +503,8 @@ def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
     Lane (i, s) = row i*S + s covers body samples [s*B*chunk,
     (s+1)*B*chunk) of stream i after one halo chunk; `base` is the rate's
     fold modulus (all segment offsets are multiples of it, so one base
-    serves every lane and chunk with identical ring phases)."""
+    serves every lane and chunk with identical ring phases).  `lap` ends
+    the chunk loop and the compaction."""
     from .fused_frontend import run_chunk
 
     n_live = x.shape[0]
@@ -456,17 +529,20 @@ def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
     xc = torch.empty(chunk, n_lanes, dtype=torch.float32, device=dev)
     mm = torch.empty(n_lanes, B * chunk, dtype=torch.uint8, device=dev)
     vh = pen = None
-    for k in range(B + 1):
-        src = prev if k == 0 else x4[:, :, k - 1, :]
-        xc.view(chunk, n_live, S).copy_(src.permute(2, 0, 1))
-        if k == B:
-            pen = st  # state at window end minus one chunk
-        outs, st = run_chunk(xc, st, base, pt, mp, plan, ("detect_mask",))
-        if k == 0:
-            vh = st[:_NVER].t().contiguous()
-        else:
-            mm[:, (k - 1) * chunk : k * chunk] = outs["detect_mask"].t()
-    idx, bits, cnt = _compact(mm, cap)
+    with _step(lap, "chunks"):
+        for k in range(B + 1):
+            src = prev if k == 0 else x4[:, :, k - 1, :]
+            xc.view(chunk, n_live, S).copy_(src.permute(2, 0, 1))
+            if k == B:
+                pen = st  # state at window end minus one chunk
+            outs, st = run_chunk(xc, st, base, pt, mp, plan,
+                                 ("detect_mask",))
+            if k == 0:
+                vh = st[:_NVER].t().contiguous()
+            else:
+                mm[:, (k - 1) * chunk : k * chunk] = outs["detect_mask"].t()
+    with _step(lap, "compact"):
+        idx, bits, cnt = _compact(mm, cap)
     return {"mm": mm, "idx": idx, "bits": bits, "cnt": cnt, "vh": vh,
             "ve": st[:_NVER].t().contiguous(), "pen": pen[:, S - 1 :: S],
             "end": st[:, S - 1 :: S], "st": st}
@@ -476,7 +552,7 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
                         segments: int, cap_div: int = 16,
                         chunk: int | None = None,
                         sample_rate: int = 10_000_000,
-                        k_bucket: int = 32, device="cuda"):
+                        k_bucket: int = 32, device="cuda", lap=_no_lap):
     """Segment-parallel chained masks over one window (see the scheme note
     above).  blocks: [n_live, T] host samples, T = K*chunk, segments | K
     (chunk defaults to the module's CHAIN_CHUNK, read at call time, and
@@ -487,7 +563,9 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     "end": same at prev end, "tail": [n_live, chunk] prev last chunk}, on
     the host.  Runs on `device` (``cpu``: the kernels' plain versions).
     Returns (per-stream (rel i64, bits u8) window-relative, new carry,
-    {"repaired_streams", "repair_chunks"})."""
+    {"repaired_streams", "repair_chunks"}).  `lap` ends each step, as in
+    run_chained_masks; each repair is one step, ``repair``, whose serial
+    chain takes the lap's nested lap (StepSums.nested)."""
     from .fused_frontend import kernel_plan
 
     if chunk is None:
@@ -508,32 +586,36 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     assert S >= 2 and K % S == 0
     B = K // S
     cap = max(4096, (B * chunk) // cap_div)
-    x = upload_samples(blocks, dev)
-    tail = upload_samples(np.ascontiguousarray(carry["tail"]), dev)
-    d = _segmented_masks(x, tail, _expand_state(carry["pen"], dev), pt, mp,
-                         plan, S, B, chunk, base, cap)
-    del x, tail
-    vh, ve = d["vh"].cpu().numpy(), d["ve"].cpu().numpy()
+    with _step(lap, "upload"):
+        x = upload_samples(blocks, dev)
+        tail = upload_samples(np.ascontiguousarray(carry["tail"]), dev)
+        pen_in = _expand_state(carry["pen"], dev)
+    d = _segmented_masks(x, tail, pen_in, pt, mp, plan, S, B, chunk, base,
+                         cap, lap)
+    del x, tail, pen_in
+    with _step(lap, "fetch"):
+        vh, ve = d["vh"].cpu().numpy(), d["ve"].cpu().numpy()
 
     # verify EVERY pairwise boundary (NaN compares unequal, which
     # correctly forces a repair): ok[i][s] means lane (i, s)'s post-halo
     # carry equals lane (i, s-1)'s end carry, i.e. segment s is exact
     # WHENEVER its predecessor is
-    boundary_ok = np.ones((n_live, S), bool)
-    for i in range(n_live):
-        for s in range(1, S):
-            l = i * S + s
-            boundary_ok[i, s] = np.array_equal(vh[l], ve[l - 1])
-    first_bad: dict[int, int] = {
-        i: int(np.argmin(boundary_ok[i]))
-        for i in range(n_live)
-        if not boundary_ok[i].all()
-    }
+    with _step(lap, "verify"):
+        boundary_ok = np.ones((n_live, S), bool)
+        for i in range(n_live):
+            for s in range(1, S):
+                l = i * S + s
+                boundary_ok[i, s] = np.array_equal(vh[l], ve[l - 1])
+        first_bad: dict[int, int] = {
+            i: int(np.argmin(boundary_ok[i]))
+            for i in range(n_live)
+            if not boundary_ok[i].all()
+        }
 
     # every lane's triggers (lanes inside a repair range get overwritten,
     # but fetching them is cheaper than a second round trip when the
     # repair early-stops and re-accepts them)
-    per_lane = _fetch(d["mm"], d["idx"], d["bits"], d["cnt"], cap)
+    per_lane = _fetch(d["mm"], d["idx"], d["bits"], d["cnt"], cap, lap)
 
     # repair with convergence stop (the conditioner's scheme): re-run the
     # first unverified segment exactly from the accepted predecessor's
@@ -567,18 +649,20 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
                 lo_c = s * B
                 kk = take * B
                 seg = blocks[i : i + 1, lo_c * chunk : (lo_c + kk) * chunk]
-                per, state_dev, c2 = run_chained_masks(
-                    seg, state_dev, base, pt, mp, cap_div=cap_div,
-                    chunk=chunk, sample_rate=sample_rate, want_carry=True,
-                )
-                rel, bb = per[0]
-                for ss in range(s, s + take):
-                    in_seg = (rel >= (ss - s) * B * chunk) & (
-                        rel < (ss - s + 1) * B * chunk
+                with _step(lap, "repair", stream=i, chunks=kk):
+                    per, state_dev, c2 = run_chained_masks(
+                        seg, state_dev, base, pt, mp, cap_div=cap_div,
+                        chunk=chunk, sample_rate=sample_rate,
+                        want_carry=True, lap=_nested(lap),
                     )
-                    rep_seg[(i, ss)] = (
-                        rel[in_seg] - (ss - s) * B * chunk, bb[in_seg]
-                    )
+                    rel, bb = per[0]
+                    for ss in range(s, s + take):
+                        in_seg = (rel >= (ss - s) * B * chunk) & (
+                            rel < (ss - s + 1) * B * chunk
+                        )
+                        rep_seg[(i, ss)] = (
+                            rel[in_seg] - (ss - s) * B * chunk, bb[in_seg]
+                        )
                 repair_chunks += kk
                 s += take
                 if s >= S:
@@ -593,25 +677,27 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
             while j < len(bad) and bad[j] <= rejoined:
                 j += 1
 
-    new_pen = _state_rows(d["pen"])
-    new_end = _state_rows(d["end"])
-    out = []
-    for i in range(n_live):
-        parts_r, parts_b = [], []
-        for s in range(S):
-            if (i, s) in rep_seg:
-                rel, bb = rep_seg[(i, s)]
-            else:
-                rel, bb = per_lane[i * S + s]
-            parts_r.append(rel + s * B * chunk)
-            parts_b.append(bb)
-        if i in rep_carry:
-            new_pen[i], new_end[i] = rep_carry[i]
-        out.append((np.concatenate(parts_r), np.concatenate(parts_b)))
-    new_carry = {
-        "pen": new_pen, "end": new_end,
-        "tail": np.ascontiguousarray(blocks[:, -chunk:]),
-    }
+    with _step(lap, "carry"):
+        new_pen = _state_rows(d["pen"])
+        new_end = _state_rows(d["end"])
+    with _step(lap, "assemble"):
+        out = []
+        for i in range(n_live):
+            parts_r, parts_b = [], []
+            for s in range(S):
+                if (i, s) in rep_seg:
+                    rel, bb = rep_seg[(i, s)]
+                else:
+                    rel, bb = per_lane[i * S + s]
+                parts_r.append(rel + s * B * chunk)
+                parts_b.append(bb)
+            if i in rep_carry:
+                new_pen[i], new_end[i] = rep_carry[i]
+            out.append((np.concatenate(parts_r), np.concatenate(parts_b)))
+        new_carry = {
+            "pen": new_pen, "end": new_end,
+            "tail": np.ascontiguousarray(blocks[:, -chunk:]),
+        }
     stats = {"repaired_streams": len(first_bad),
              "repair_chunks": repair_chunks}
     return out, new_carry, stats

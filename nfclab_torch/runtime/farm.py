@@ -48,8 +48,13 @@ from ..core.params import SignalParams
 from ..dsp.cuda_channels import (
     _WARMUP, box_keys, idx_key_map, resolve_device,
 )
+from . import trace
 from .decoder import CarrierDetector, DecoderContext, walk
 from .streaming import StreamingNfcDecoder
+
+# the mask farm's counters beyond nfclab's (see CudaStreamFarm.stats)
+STEP_COUNTERS = ("io_idle_s", "upload_s", "launch_s", "compact_s", "fetch_s",
+                 "verify_s", "repair_s", "walk_busy_s", "walk_cpu_s")
 
 # the segments policy's lane ceiling: nfclab's kernel tile width, kept so
 # the farm splits a window exactly as nfclab's does (the CUDA kernels
@@ -459,7 +464,15 @@ class CudaStreamFarm:
     ``stats``: ``device_s`` (the IO thread's upload + launches + fetch in
     mask mode; the same steps on the caller's thread in full mode),
     ``walk_s``, ``wait_s``, ``dispatches`` (windows in mask mode, feeds in
-    full mode), ``drained_samples`` and the segmented engine's counts."""
+    full mode), ``drained_samples`` and the segmented engine's counts.
+    Mask mode also sums, always and with no device sync (host
+    ``perf_counter`` seconds): ``io_idle_s`` (the IO thread idle between
+    one device pass and the next), ``device_s`` split by step
+    (``upload_s``, ``launch_s``, ``compact_s``, ``fetch_s``,
+    ``verify_s``, ``repair_s``: cuda_channels.StepSums) and, over
+    streams, each stream's walk in wall seconds (``walk_busy_s``) and in
+    its thread's CPU seconds (``walk_cpu_s``).  While spans record (runtime/trace) the
+    same steps are spans, those of one window sharing its ``seq``."""
 
     def __init__(
         self,
@@ -575,7 +588,13 @@ class CudaStreamFarm:
         self.stats = {"device_s": 0.0, "walk_s": 0.0, "dispatches": 0,
                       "wait_s": 0.0, "drained_samples": 0,
                       "seg_dispatches": 0, "repaired_streams": 0,
-                      "repair_chunks": 0, "seg_backoff_windows": 0}
+                      "repair_chunks": 0, "seg_backoff_windows": 0,
+                      **{k: 0.0 for k in STEP_COUNTERS}}
+        # the IO thread's own: windows passed, samples passed, the end of
+        # the last pass; the caller's: windows walked
+        self._io_seq = self._io_clock = 0
+        self._io_end = None
+        self._walk_seq = 0
         # adaptive segmentation backoff (see class docstring);
         # adaptive_segments=False keeps segmenting regardless of repair
         # rate (validation harnesses exercising the repair path)
@@ -601,8 +620,10 @@ class CudaStreamFarm:
             # COPY at staging: consumption (upload + the deferred
             # pipelined walk) happens up to k_chunks feeds later, and
             # callers legitimately reuse their feed buffer every call
-            self._pipe.stage(blocks.copy())
-            self._launch_ready()
+            with trace.span("farm.stage",
+                            offset=self._clock + self._pipe.staged_len):
+                self._pipe.stage(blocks.copy())
+                self._launch_ready()
             return self._drain(block=False)
         from ..dsp.fused_frontend import TILE
 
@@ -643,73 +664,95 @@ class CudaStreamFarm:
         plain serial chain."""
         import time
 
-        from ..dsp.cuda_channels import (
-            CHAIN_CHUNK, _expand_state, chain_state0, run_chained_masks,
-            run_segmented_masks,
-        )
+        from ..dsp.cuda_channels import CHAIN_CHUNK, StepSums
 
         t0 = time.perf_counter()
+        seq, lo = self._io_seq, self._io_clock
+        self._io_seq += 1
+        self._io_clock += batch.shape[1]
+        if self._io_end is not None:
+            self.stats["io_idle_s"] += t0 - self._io_end
+            trace.record("farm.io_idle", self._io_end, t0, seq=seq)
         seg = self.segments
-        use_seg = (seg > 1 and self._carry is not None
-                   and batch.shape[1] == self.k_chunks * CHAIN_CHUNK)
+        full = batch.shape[1] == self.k_chunks * CHAIN_CHUNK
+        use_seg = seg > 1 and self._carry is not None and full
+        kind = "segmented" if use_seg else "serial" if full else "flush"
         if use_seg and self._seg_backoff > 0:
             # pause-heavy traffic: serial windows until the next probe
             self._seg_backoff -= 1
             self.stats["seg_backoff_windows"] += 1
             use_seg = False
-        with torch.cuda.stream(self._stream):
-            if use_seg:
-                per_stream, self._carry, rst = run_segmented_masks(
-                    batch, self._carry, self._pt, self._mp, seg,
-                    cap_div=self.cap_div, sample_rate=self.sample_rate,
-                    k_bucket=self.k_chunks, device=self._dev,
-                )
-                self._state = None  # rebuilt from carry["end"] if needed
-                self.stats["seg_dispatches"] += 1
-                self.stats["repaired_streams"] += rst["repaired_streams"]
-                self.stats["repair_chunks"] += rst["repair_chunks"]
-                if (self.adaptive_segments
-                        and rst["repaired_streams"] * 2 > self.n_streams):
-                    # most streams verify-failed (pauses spanning
-                    # boundaries): back off to the serial chain, re-probe
-                    # later
-                    self._seg_backoff = self._seg_backoff_next
-                    self._seg_backoff_next = min(
-                        64, self._seg_backoff_next * 2
-                    )
-                else:
-                    self._seg_backoff_next = 8
-            else:
-                if self._state is None:
-                    if self._carry is not None:
-                        self._state = _expand_state(self._carry["end"],
-                                                    self._dev)
-                    else:
-                        self._state = chain_state0(
-                            self.n_streams, sample_rate=self.sample_rate,
-                            device=self._dev,
-                        )
-                if seg > 1:
-                    per_stream, self._state, c2 = run_chained_masks(
-                        batch, self._state, base0, self._pt, self._mp,
-                        cap_div=self.cap_div, sample_rate=self.sample_rate,
-                        want_carry=True,
-                    )
-                    self._carry = {
-                        "pen": c2["pen"], "end": c2["end"],
-                        "tail": np.ascontiguousarray(
-                            batch[:, -CHAIN_CHUNK:]
-                        ),
-                    }
-                else:
-                    per_stream, self._state = run_chained_masks(
-                        batch, self._state, base0, self._pt, self._mp,
-                        cap_div=self.cap_div, sample_rate=self.sample_rate,
-                    )
-            if self._stream is not None:
-                self._stream.synchronize()
-        self.stats["device_s"] += time.perf_counter() - t0
+            kind = "backoff"
+        lap = StepSums(self.stats, t0, seq)
+        try:
+            with trace.span("farm.device_pass", kind=kind, seq=seq, lo=lo,
+                            hi=self._io_clock):
+                with torch.cuda.stream(self._stream):
+                    per_stream = self._run_engines(batch, base0, use_seg,
+                                                   lap)
+                    if self._stream is not None:
+                        self._stream.synchronize()
+        finally:
+            self._io_end = time.perf_counter()
+        self.stats["device_s"] += self._io_end - t0
         self.stats["dispatches"] += 1
+        return per_stream
+
+    def _run_engines(self, batch: np.ndarray, base0: int, use_seg: bool,
+                     lap):
+        """One window through the segmented engine, or through the serial
+        chain from the carried state (rebuilt on the card first where a
+        segmented window left none)."""
+        from ..dsp.cuda_channels import (
+            CHAIN_CHUNK, _expand_state, _step, chain_state0,
+            run_chained_masks, run_segmented_masks,
+        )
+
+        seg = self.segments
+        if use_seg:
+            per_stream, self._carry, rst = run_segmented_masks(
+                batch, self._carry, self._pt, self._mp, seg,
+                cap_div=self.cap_div, sample_rate=self.sample_rate,
+                k_bucket=self.k_chunks, device=self._dev, lap=lap,
+            )
+            self._state = None  # rebuilt from carry["end"] if needed
+            self.stats["seg_dispatches"] += 1
+            self.stats["repaired_streams"] += rst["repaired_streams"]
+            self.stats["repair_chunks"] += rst["repair_chunks"]
+            if (self.adaptive_segments
+                    and rst["repaired_streams"] * 2 > self.n_streams):
+                # most streams verify-failed (pauses spanning boundaries):
+                # back off to the serial chain, re-probe later
+                self._seg_backoff = self._seg_backoff_next
+                self._seg_backoff_next = min(64, self._seg_backoff_next * 2)
+            else:
+                self._seg_backoff_next = 8
+            return per_stream
+        if self._state is None:
+            with _step(lap, "upload"):
+                if self._carry is not None:
+                    self._state = _expand_state(self._carry["end"],
+                                                self._dev)
+                else:
+                    self._state = chain_state0(
+                        self.n_streams, sample_rate=self.sample_rate,
+                        device=self._dev,
+                    )
+        if seg > 1:
+            per_stream, self._state, c2 = run_chained_masks(
+                batch, self._state, base0, self._pt, self._mp,
+                cap_div=self.cap_div, sample_rate=self.sample_rate,
+                lap=lap, want_carry=True,
+            )
+            self._carry = {
+                "pen": c2["pen"], "end": c2["end"],
+                "tail": np.ascontiguousarray(batch[:, -CHAIN_CHUNK:]),
+            }
+            return per_stream
+        per_stream, self._state = run_chained_masks(
+            batch, self._state, base0, self._pt, self._mp,
+            cap_div=self.cap_div, sample_rate=self.sample_rate, lap=lap,
+        )
         return per_stream
 
     def _drain(self, block: bool) -> list[list[Frame]]:
@@ -721,41 +764,57 @@ class CudaStreamFarm:
 
         def on_wait(dt):
             self.stats["wait_s"] += dt
+            now = time.perf_counter()
+            trace.record("farm.wait", now - dt, now, seq=self._walk_seq)
 
         def walk(batch, per_stream):
             t0 = time.perf_counter()
             width = batch.shape[1]
+            seq = self._walk_seq
+            self._walk_seq += 1
+            lo0 = self.stats["drained_samples"] // len(self.streams)
+            ws = trace.span("farm.walk", seq=seq, lo=lo0, hi=lo0 + width)
 
             def walk_one(i):
+                # wall and thread-CPU seconds, the CPU's read inside the
+                # wall's interval: the difference is time off a CPU
+                t1, c1 = time.perf_counter(), time.thread_time()
                 st = self.streams[i]
                 rel, bits = per_stream[i]
                 frames = []
-                # walk in window-memory-safe sub-chunks
-                for lo in range(0, width, CHAIN_CHUNK):
-                    hi = min(lo + CHAIN_CHUNK, width)
-                    sel = (rel >= lo) & (rel < hi)
-                    frames.extend(
-                        st.feed_mask_idx(
-                            batch[i, lo:hi], rel[sel] - lo, bits[sel]
+                with trace.span("farm.walk.stream", parent=ws.id, seq=seq,
+                                stream=i):
+                    # walk in window-memory-safe sub-chunks
+                    for lo in range(0, width, CHAIN_CHUNK):
+                        hi = min(lo + CHAIN_CHUNK, width)
+                        sel = (rel >= lo) & (rel < hi)
+                        frames.extend(
+                            st.feed_mask_idx(
+                                batch[i, lo:hi], rel[sel] - lo, bits[sel]
+                            )
                         )
-                    )
-                return frames
+                cpu = time.thread_time() - c1
+                return frames, time.perf_counter() - t1, cpu
 
-            if self.walk_threads and self.walk_threads > 1:
-                # streams are independent; the hot walk is GIL-releasing
-                # native code, so per-stream threads scale on multi-core
-                # hosts (each stream keeps ITS OWN decoder -- no sharing)
-                if self._walk_pool is None:
-                    from concurrent.futures import ThreadPoolExecutor
+            with ws:
+                if self.walk_threads and self.walk_threads > 1:
+                    # streams are independent; the hot walk is
+                    # GIL-releasing native code, so per-stream threads
+                    # scale on multi-core hosts (each stream keeps ITS OWN
+                    # decoder -- no sharing)
+                    if self._walk_pool is None:
+                        from concurrent.futures import ThreadPoolExecutor
 
-                    self._walk_pool = ThreadPoolExecutor(self.walk_threads)
-                for i, frames in enumerate(
-                    self._walk_pool.map(walk_one, range(len(self.streams)))
-                ):
-                    out[i].extend(frames)
-            else:
-                for i in range(len(self.streams)):
-                    out[i].extend(walk_one(i))
+                        self._walk_pool = ThreadPoolExecutor(
+                            self.walk_threads)
+                    walked = list(self._walk_pool.map(
+                        walk_one, range(len(self.streams))))
+                else:
+                    walked = [walk_one(i) for i in range(len(self.streams))]
+            for i, (frames, busy, cpu) in enumerate(walked):
+                out[i].extend(frames)
+                self.stats["walk_busy_s"] += busy
+                self.stats["walk_cpu_s"] += cpu
             self.stats["walk_s"] += time.perf_counter() - t0
             self.stats["drained_samples"] += width * len(self.streams)
 

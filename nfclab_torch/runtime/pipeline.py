@@ -36,6 +36,8 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
+from collections import deque
 from typing import Callable
 
 import numpy as np
@@ -44,6 +46,7 @@ from ..core.frame import Frame
 from ..dsp.magnitude import SoftwareAgc, iq_to_magnitude
 from ..hw.record import RecordDevice
 from ..hw.signal import SignalBuffer, SignalType
+from . import trace
 from .metrics import Throughput
 from .subject import Subject
 
@@ -429,7 +432,12 @@ class RadioDecoderTask(Task):
     the device is resolved and the kernel library built here, so a
     missing card raises DeviceUnavailable before any capture starts.
     There is no host fallback: an error of the device path ends the task
-    with Executor's "error" status."""
+    with Executor's "error" status.
+
+    Spans (runtime/trace), each with the block's sample ``offset``:
+    ``task.queued`` (the block's put to its get in ``signal_queue``),
+    ``task.feed`` (the decoder's feed) and ``task.publish`` (its frames
+    on ``radio.decoder.frame``)."""
 
     def __init__(self, window: int | None = 1 << 20, frontend: str = "host",
                  device="cuda", **decoder_kwargs):
@@ -443,9 +451,16 @@ class RadioDecoderTask(Task):
         self.decoder_kwargs = decoder_kwargs
         self.frame_stream = Subject.name("radio.decoder.frame")
         self.signal_queue: "queue.Queue[SignalBuffer]" = queue.Queue()
-        Subject.name("radio.signal.raw").subscribe(
-            self.signal_queue.put, replay=False
-        )
+        # the put time of each queued block, in queue order (the queue
+        # holds the blocks alone)
+        self._put_times: deque = deque()
+        self._put_lock = threading.Lock()
+        Subject.name("radio.signal.raw").subscribe(self._put, replay=False)
+
+    def _put(self, buf: SignalBuffer) -> None:
+        with self._put_lock:
+            self._put_times.append(time.perf_counter())
+            self.signal_queue.put(buf)
 
     # ------------------------------------------------------------- commands
 
@@ -492,7 +507,10 @@ class RadioDecoderTask(Task):
         # RadioDecoderTask.cpp:368-375: drop pending signal buffers without
         # ending the session (the in-progress decoder state is untouched;
         # the next buffer resumes at its absolute offset)
-        self._drain(self.signal_queue)
+        with self._put_lock:
+            for _ in range(self._drain(self.signal_queue)):
+                if self._put_times:
+                    self._put_times.popleft()
 
     def _make_decoder(self, sample_rate: int):
         from .streaming import StreamingNfcDecoder
@@ -531,6 +549,9 @@ class RadioDecoderTask(Task):
                 buf = self.signal_queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            if self._put_times:
+                trace.record("task.queued", self._put_times.popleft(),
+                             time.perf_counter(), offset=int(buf.offset))
             if not buf.valid:  # in-band EOF: flush + await the next session
                 flush(dec)
                 dec = None
@@ -540,8 +561,12 @@ class RadioDecoderTask(Task):
                 continue  # Stopped: drop buffers (RadioDecoderTask.cpp:76-79)
             if dec is None:
                 dec = self._make_decoder(buf.sample_rate)
-            for frame in dec.feed(np.asarray(buf.data, np.float32)):
-                self.frame_stream.next(frame)
+            off = int(buf.offset)
+            with trace.span("task.feed", offset=off):
+                frames = dec.feed(np.asarray(buf.data, np.float32))
+            with trace.span("task.publish", offset=off, frames=len(frames)):
+                for frame in frames:
+                    self.frame_stream.next(frame)
             self.throughput.update(buf.elements)
         if dec is not None:
             flush(dec)

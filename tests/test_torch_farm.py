@@ -154,7 +154,7 @@ class _Stubs:
                 "end": np.full((n, 3), self.t, np.float32)}
 
     def run(self, blocks, state, base0, pt, mp, cap_div=8, chunk=None,
-            sample_rate=RATE, want_carry=False):
+            sample_rate=RATE, want_carry=False, lap=None):
         out = self._oracle(blocks)
         self.calls["serial"] += 1
         if want_carry:
@@ -162,7 +162,7 @@ class _Stubs:
         return out, state
 
     def seg(self, blocks, carry, pt, mp, segments, cap_div=16, chunk=None,
-            sample_rate=RATE, k_bucket=32, device=None):
+            sample_rate=RATE, k_bucket=32, device=None, lap=None):
         lo = self.t
         assert segments == 2
         # carry threading: the tail is the previous window's last chunk,
@@ -218,10 +218,14 @@ def _both_farms(sigs, masks, step, repaired=0, reuse=True, **farm_kw):
 
 
 def _assert_same(ref, port, sigs):
+    from nfclab_torch.runtime.farm import STEP_COUNTERS
+
     (rf, rs, rseg, rcalls), (pf, ps, pseg, pcalls) = ref, port
     assert rseg == pseg
     assert rcalls == pcalls
-    assert set(rs) == set(ps)
+    # nfclab's keys, and the port's own seconds beside them
+    assert set(ps) == set(rs) | set(STEP_COUNTERS)
+    assert all(ps[k] >= 0.0 for k in STEP_COUNTERS)
     for k in rs:
         if k not in TIMING_KEYS:
             assert rs[k] == ps[k], k
