@@ -1072,6 +1072,7 @@ def check_main_shape(dev, caps, errs):
 
     from nfclab_torch.dsp import cuda_channels as cc
     from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.kernels import fused as kf
 
     pt, _, mp = _params(RATE)
     plan = ff.kernel_plan(RATE)
@@ -1150,6 +1151,22 @@ def check_main_shape(dev, caps, errs):
     t["scan_ms"] = _event_ms(
         lambda: ff.fused_scan(x_tm, st_in, base, pt, plan), 5)
     t["scan_ns_per_step"] = t["scan_ms"] * 1e6 / chunk
+    # the scan the rule does not take at this shape (ff_scan_kernel_narrow
+    # takes up to 8 streams an SM): bit for bit the same, and its time
+    narrow = kf.scan_narrow(STREAMS, plan, kf.sm_count(dev.index or 0))
+    other = "ff_scan_kernel" if narrow else "ff_scan_kernel_narrow"
+    t["scan_kernel"] = "ff_scan_kernel_narrow" if narrow else "ff_scan_kernel"
+    rule = kf.scan_narrow
+    kf.scan_narrow = lambda *a: not narrow
+    try:
+        deps_o, _, so_o = ff.fused_scan(x_tm, st_in, base, pt, plan)
+        t["scan_other_ms"] = _event_ms(
+            lambda: ff.fused_scan(x_tm, st_in, base, pt, plan), 5)
+    finally:
+        kf.scan_narrow = rule
+    _hold(errs, "fused_scan", deps_o, deps_k, f"{other}'s deps")
+    _hold(errs, "fused_scan", so_o[~hist], so_k[~hist], f"{other}'s state")
+    t["scan_other_kernel"] = other
     t["mask_ms"] = _event_ms(
         lambda: ff.fused_mask(deps_k, x_tm, st_in, so_t, mp, plan), 5)
     t["mask_md_ms"] = _event_ms(
@@ -1195,9 +1212,9 @@ def check_main_shape(dev, caps, errs):
     return t
 
 
-SCANS = ("ff_scan_kernel", "cond_scan_kernel", "v2_scan_kernel",
-         "serial_probe_kernel", "pair_probe_kernel", "v2_mask_kernel",
-         "ff_mask_kernel")
+SCANS = ("ff_scan_kernel_narrow", "ff_scan_kernel", "cond_scan_kernel",
+         "v2_scan_kernel", "serial_probe_kernel", "pair_probe_kernel",
+         "v2_mask_kernel", "ff_mask_kernel")
 
 
 def scan_resources(kbuild) -> dict:
@@ -1248,7 +1265,9 @@ def log_scan_resources(kbuild) -> dict:
         plan = ff.kernel_plan(rate)
         log(f"  ff_scan_kernel at {rate} Hz: group {kf.scan_group(plan)}, "
             f"{kf.scan_smem(ff._layout(plan).ring_rows)} B of shared memory "
-            f"per block of {kf.SCAN_THREADS} threads")
+            f"per block of {kf.SCAN_THREADS} threads; ff_scan_kernel_narrow "
+            f"{kf.scan_narrow_smem(plan)} B per block of "
+            f"{kf.SCAN_NARROW_THREADS}")
     for rate in FF_MASK_RATES:
         g = kf.mask_geometry(ff.kernel_plan(rate), True, True)
         log(f"  ff_mask_kernel at {rate} Hz, mask and mod_depth: {g[5]} "
@@ -1256,13 +1275,15 @@ def log_scan_resources(kbuild) -> dict:
             f"shared memory, {g[7]} lag windows (channel, lmin, lmax, rows, "
             f"first row): {g[8:]}")
     res = scan_resources(kbuild)
-    dyn = {"ff_scan_kernel": kf.scan_smem(ff._layout(ff.kernel_plan(RATE))
+    dyn = {"ff_scan_kernel_narrow": kf.scan_narrow_smem(ff.kernel_plan(RATE)),
+           "ff_scan_kernel": kf.scan_smem(ff._layout(ff.kernel_plan(RATE))
                                           .ring_rows),
            "cond_scan_kernel": 0, "v2_scan_kernel": kv.scan_smem(),
            "serial_probe_kernel": 0, "pair_probe_kernel": 0,
            "v2_mask_kernel": kv.mask_smem(),
            "ff_mask_kernel": kf.mask_geometry(ff.kernel_plan(RATE))[6]}
-    threads = {"ff_scan_kernel": kf.SCAN_THREADS,
+    threads = {"ff_scan_kernel_narrow": kf.SCAN_NARROW_THREADS,
+               "ff_scan_kernel": kf.SCAN_THREADS,
                "cond_scan_kernel": kc.THREADS,
                "v2_scan_kernel": kv.SCAN_THREADS,
                "serial_probe_kernel": kp.SERIAL_THREADS,
@@ -4146,6 +4167,9 @@ def main(argv=None) -> int:
 
     per_step = {"fused_scan": {
                     "ns_per_step": tk["scan_ns_per_step"],
+                    "kernel": tk["scan_kernel"],
+                    "other_kernel": tk["scan_other_kernel"],
+                    "other_ms": tk["scan_other_ms"],
                     "repair_ms": farm["repair"]["scan_kernel_ms"],
                     "pair_all_outputs_ms": tk["chunk_all_ms"],
                     "pair_all_outputs_bound_ms": tk["chunk_all_bound"][0],

@@ -6,7 +6,7 @@
 // VMEM, and _jitted_dma, state in HBM behind async copies): one kernel
 // here serves both, because the state layout is the same.
 //
-// Two kernels, called in order for every chunk of T samples:
+// For every chunk of T samples one of the two scans, then the mask:
 //
 //   ff_scan_kernel  serial over the chunk, 32 streams per block, one lane
 //                   each, with the work split over warps: the conditioning
@@ -16,6 +16,14 @@
 //                   clock.  Rings live in shared memory, one column per
 //                   lane; carry and sums live in registers.  The layout of
 //                   the block is described above the kernel below.
+//   ff_scan_kernel_narrow
+//                   the same chains and boxes in the same order, bit for
+//                   bit, 8 streams per block and a lane per (stream, box)
+//                   in the box warps; taken while its blocks fill no more
+//                   than one per SM (kernels/fused.py scan_narrow), where
+//                   it measured faster: the live path (B = 1 and 4) and
+//                   every B up to 8 x the SMs.  The layout of the block is
+//                   described above the kernel.
 //   ff_mask_kernel  parallel in time, W streams (32, or 16 for the plans
 //                   whose rings need it) and a span of rows per block: the
 //                   packed detect_mask and mod_depth from the box, filtered
@@ -54,18 +62,27 @@
 //     that issue from four schedulers; the box counts are template
 //     arguments, so no runtime loop bound is left in a step.
 //   - The envelope test has no divide for 0 < env < inf (cond_env_near).
-// What still bounds it: one stream per lane and 32 streams per SM, so at
-// 1024 streams 100 SMs stay idle, and the step of the busiest warp sets
-// the pace.  That is the product-box warp, by issue: at 10 MS/s its
-// group of 6 steps is ~480 instructions, ~80 a step, most of them ring
-// and row address arithmetic (the raw-value warp ~52 a step, the filter
-// warp ~61, the envelope warp ~44; counted in the sm_90a SASS), against
-// ~92 ns a step measured on an H100 (PERF.md).  Fewer address operations
-// a step, or the product boxes split over two warps, come next; more
-// streams per call, or a stream split across threads (the segmented
-// engine of the JAX package), fill the card.  The two-pass design also
-// writes and re-reads the six mask dependency channels (24 B/sample)
-// through L2 and HBM: the mask kernel reads them once and writes the
+// What still bounds the scans (clock64 laps a role on an H100 at 1.98
+// GHz, PERF.md): the step of the slowest warp, the others waiting for
+// it at the stages.  ff_scan_kernel takes ~92 ns a step, its filter warp
+// (w1 -> filt -> mdev, avg, the two q boxes, the filtered store) ~148
+// cycles, the envelope and product warps ~120, the raw-value warp ~99;
+// one stream per lane and 32 per SM, so at 1024 streams 100 SMs stay
+// idle.  Below 32 streams a block, its lanes past the last stream start
+// from env = 0 and read stage columns the producer never fills: where
+// that shared memory holds zeros, as on an SM no kernel used before, the
+// envelope warp takes cond_env_near's divide at every step (375 cycles,
+// 12.6 ms a 65536-sample chunk at B = 1 against 6.1 where an earlier
+// kernel left samples there).  ff_scan_kernel_narrow takes ~50 ns a step
+// at any B up to 8 x the SMs: a box warp's step is its stream's chain and
+// one box, the envelope warp's (~94 cycles, its chain F2F -> DMUL ->
+// DSETP -> select) sets the pace, the filter warp ~86, the box warps
+// 41-52; no lane takes a branch, so neither a missing stream nor an
+// envelope <= 0 costs a divide.  A shorter envelope chain comes next;
+// more streams than one narrow block an SM go to ff_scan_kernel.
+// The two-pass design also writes and re-reads the six mask dependency
+// channels (24 B/sample) through L2 and HBM: the mask kernel reads them
+// once and writes the
 // packed mask, 25 B a sample (33 with mod_depth), 0.50 ms per 1024 x
 // 65536 at 3.35 TB/s, the floor of the two-kernel split.  What the mask
 // kernel does about it: each row of a lag window is copied into shared
@@ -630,6 +647,438 @@ ff_scan_kernel(const FFScanArgs a)
 }
 
 // ---------------------------------------------------------------------------
+// ff_scan_kernel_narrow: the serial phase for a few streams, a lane per
+// (stream, box)
+//
+// Block of FFN_WARPS warps for FFN_STREAMS (8) streams; the operations of
+// every chain and box are ff_scan_kernel's, in its order, so the two are
+// bit for bit alike and share the state layout.  The envelope test is
+// ffn_env_near, the same decision with neither a divide nor a branch.  A
+// lane runs stream s = lane % 8 of the block and, in a box warp, box i =
+// lane / 8; where the block has fewer streams than 8, lane s runs the
+// block's first stream instead, and where a role has fewer boxes than 4,
+// box i runs box 0: such a lane computes what a live lane computes, on
+// samples the producer staged, and stores nothing.  Every store is one
+// instruction under a condition fixed before the chunk, so no step
+// branches.
+//   warp 0  envelope + float silence counter: deps envelope; rows 0, 4
+//   warp 1  w1 -> filt -> mdev, avg: deps filtered, out_mdev, out_avg;
+//           rows 1-3
+//   warp 2  the product boxes: its own w1 -> filt, its box over its copy
+//           of the rf ring and its rp ring: out_p; rf, rp, p sums
+//   warp 3  the q boxes: its own w1 -> filt, its box over its copy of the
+//           rq ring: out_q; rq, q sums
+//   warp 4  the raw-value boxes over its copy of the rv ring: deps bv
+//           rows; rv, bv sums
+//   warp 5  the producer: [FF_TILE_ROWS, 8] tiles, as warp 4 of
+//           ff_scan_kernel; then the rows copied through
+// Each box lane keeps its own copy of its stream's ring in its own column
+// of a [rows][32] ring, so every ring read and write is one conflict-free
+// shared access of its own; the stages are [rows][8], lane = column % 8.
+// Warp w issues from scheduler w % 4: the raw-value warp, the lightest of
+// the box warps, shares the envelope warp's, and the producer the filter
+// warp's.
+
+#define FFN_STREAMS 8
+#define FFN_BOXES (32 / FFN_STREAMS)
+#define FFN_WARPS 6
+#define FFN_CONSUMERS 5
+
+template <int U, class Role>
+__device__ __forceinline__ void ffn_consume(Role &role, const FFStages &st,
+                                            int64_t T, int32_t base, int col,
+                                            int lane)
+{
+    const int ntiles = (int)((T + FF_TILE_ROWS - 1) / FF_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % FF_STAGES;
+        mbar_wait(st.full + s, (uint32_t)(i / FF_STAGES) & 1u);
+        const float *sv = st.tiles + s * (FF_TILE_ROWS * FFN_STREAMS) + col;
+        const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
+        const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
+        const int t0 = base + (int)j0;
+        role.tile(j0);
+        int r = 0;
+        for (; r + U <= n; r += U) role.template steps<U>(sv, r, t0 + r);
+        for (; r < n; ++r) role.template steps<1>(sv, r, t0 + r);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(st.empty + s);
+    }
+}
+
+// cond_env_near(v, env), exactly, for every env, with neither a divide nor
+// a branch: the quotient |v - env| / env < 0.05f decided by env's class.
+// For 0 < env < inf the divide-free test of cond_env_near_pos; for a
+// negative finite env the quotient is -0, negative or -inf (below 0.05)
+// unless |v - env| is NaN; for env = -0 it is -inf where |v - env| > 0,
+// else NaN; for env = +0, +-inf or NaN it is +inf or NaN (not below).
+__device__ __forceinline__ bool ffn_env_near(float v, float env)
+{
+    const float ad = fabsf(__fsub_rn(v, env));
+    const double m = 26843545.0 / 536870912.0;  // as cond_env_near_pos
+    const bool near_pos = (double)ad <= __dmul_rn(m, (double)env);
+    const bool pos = env > 0.0f && env < INFINITY;
+    const bool neg = env < 0.0f && env > -INFINITY;
+    const bool minus_zero = __float_as_uint(env) == 0x80000000u;
+    return pos ? near_pos : neg ? (ad == ad) : (minus_zero && ad > 0.0f);
+}
+
+// warp 0: FFEnvRole's step on the narrow stage, its test ffn_env_near; the
+// update EMA and the seed-or-hold value do not wait for the test
+struct FFNEnvRole {
+    float env, pcount;
+    float ew0, ew1, silence;
+    int32_t etu;
+    uint32_t B;
+    bool valid;
+    FFOut out;
+
+    __device__ __forceinline__ void tile(int64_t j0) { out.tile(j0, B); }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            const float v = sv[(r + k) * FFN_STREAMS];
+            pcount = __fadd_rn(pcount, 1.0f);
+            const float ema = cond_ema(env, ew0, v, ew1);
+            const float other = t + k < etu ? v : env;
+            const bool update = ffn_env_near(v, env) || (pcount > silence);
+            env = update ? ema : other;
+            pcount = update ? 0.0f : pcount;
+            if (valid) out.put((uint32_t)(r + k) * B, env);
+        }
+    }
+};
+
+// warp 1: FFFiltRole's chains without the q boxes.  Each store's
+// condition is fixed before the chunk (put_*), so that a store is one
+// predicated instruction and no step branches on it.
+struct FFNFiltRole {
+    float w1, mdev, avg;
+    float iir_a, mw0, mw1, aw0, aw1;
+    uint32_t B;
+    bool valid, put_mdev, put_avg;
+    FFOut filt_out, mdev_out, avg_out;
+
+    __device__ __forceinline__ void tile(int64_t j0)
+    {
+        filt_out.tile(j0, B);
+        mdev_out.tile(j0, B);
+        avg_out.tile(j0, B);
+    }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            const float v = sv[(r + k) * FFN_STREAMS];
+            float filt;
+            w1 = cond_iir(v, w1, iir_a, &filt);
+            mdev = cond_ema(mdev, mw0, fabsf(filt), mw1);
+            avg = cond_ema(avg, aw0, v, aw1);
+            const uint32_t o = (uint32_t)(r + k) * B;
+            if (valid) filt_out.put(o, filt);
+            if (put_mdev) mdev_out.put(o, mdev);
+            if (put_avg) avg_out.put(o, avg);
+        }
+    }
+};
+
+// warp 3: one q box (FFFiltRole's) over (filt*filt)*10, w1 -> filt of its
+// own
+struct FFNQRole {
+    float w1, iir_a, s;
+    int32_t w, mask;      // rq_ring - 1
+    float *ring;          // rq, at this lane's column
+    uint32_t B;
+    bool valid, put;      // put: valid, and the output selected
+    FFOut out;
+
+    __device__ __forceinline__ void tile(int64_t j0) { out.tile(j0, B); }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], old[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            v[k] = sv[(r + k) * FFN_STREAMS];
+            old[k] = ring[((t + k - w) & mask) * 32];
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+            const float q = __fmul_rn(__fmul_rn(filt, filt), 10.0f);
+            s = __fsub_rn(__fadd_rn(s, q), old[k]);
+            ring[((t + k) & mask) * 32] = q;
+            if (put) out.put((uint32_t)(r + k) * B, s);
+        }
+    }
+};
+
+// warp 2: one product box (FFProdRole's) over (filt*filt[t-lag])*10
+struct FFNProdRole {
+    float w1, iir_a, s;
+    int32_t lag, box, pmask, fmask;
+    float *rf;            // filtered ring, at this lane's column
+    float *rp;            // this box's product ring, at this lane's column
+    uint32_t B;
+    bool valid, put;      // put: valid, and the output selected
+    FFOut out;
+
+    __device__ __forceinline__ void tile(int64_t j0) { out.tile(j0, B); }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], lagged[N], old[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            v[k] = sv[(r + k) * FFN_STREAMS];
+            lagged[k] = rf[((t + k - lag) & fmask) * 32];
+            old[k] = rp[((t + k - box) & pmask) * 32];
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            float filt;
+            w1 = cond_iir(v[k], w1, iir_a, &filt);
+            const float prod = __fmul_rn(__fmul_rn(filt, lagged[k]), 10.0f);
+            s = __fsub_rn(__fadd_rn(s, prod), old[k]);
+            rp[((t + k) & pmask) * 32] = prod;
+            if (put) out.put((uint32_t)(r + k) * B, s);
+            rf[((t + k) & fmask) * 32] = filt;
+        }
+    }
+};
+
+// warp 5: one raw-value box (FFBvRole's), (sum + v) - v[t - w]
+struct FFNBvRole {
+    float s;
+    int32_t w, mask;      // rv_ring - 1
+    float *ring;          // rv, at this lane's column
+    uint32_t B;
+    bool valid;
+    FFOut out;
+
+    __device__ __forceinline__ void tile(int64_t j0) { out.tile(j0, B); }
+
+    template <int N>
+    __device__ __forceinline__ void steps(const float *sv, int r, int t)
+    {
+        float v[N], old[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            v[k] = sv[(r + k) * FFN_STREAMS];
+            old[k] = ring[((t + k - w) & mask) * 32];
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            s = __fsub_rn(__fadd_rn(s, v[k]), old[k]);
+            if (valid) out.put((uint32_t)(r + k) * B, s);
+            ring[((t + k) & mask) * 32] = v[k];
+        }
+    }
+};
+
+// warp 4: keep FF_STAGES [FF_TILE_ROWS, 8] tiles in flight, then copy the
+// rows the scan passes through unchanged, for the block's nb streams.
+// 16-byte copies where the block's row is whole 16-byte pieces (B % 4 ==
+// 0, nb % 4 == 0, aligned samples), a lane a piece, 16 rows at once; else
+// 4-byte ones, a lane a (row, stream), 4 rows at once.
+__device__ __forceinline__ void ffn_produce(const FFScanArgs &a,
+                                            const FFStages &st, int lane,
+                                            int64_t b0, int nb)
+{
+    const int64_t B = a.B, T = a.T;
+    const float *src0 = a.value + b0;
+    const bool wide = (B % 4 == 0) && (nb % 4 == 0)
+                      && ((uintptr_t)a.value % 16 == 0);
+    const int q = lane % FFN_STREAMS, rr = lane / FFN_STREAMS;
+    const int ntiles = (int)((T + FF_TILE_ROWS - 1) / FF_TILE_ROWS);
+    for (int i = 0; i < ntiles; ++i) {
+        const int s = i % FF_STAGES;
+        if (i >= FF_STAGES)
+            mbar_wait(st.empty + s, (uint32_t)(i / FF_STAGES - 1) & 1u);
+        const int64_t j0 = (int64_t)i * FF_TILE_ROWS;
+        const int n = T - j0 < FF_TILE_ROWS ? (int)(T - j0) : FF_TILE_ROWS;
+        float *dst = st.tiles + s * (FF_TILE_ROWS * FFN_STREAMS);
+        const float *src = src0 + j0 * B;
+        if (wide) {
+            // lane: piece lane % 2 of row lane / 2, sixteen rows at once
+            const int c = (lane % 2) * 4;
+            if (c < nb)
+                for (int r = lane / 2; r < n; r += 16)
+                    cp_async16(dst + r * FFN_STREAMS + c, src + (int64_t)r * B + c);
+        } else if (q < nb) {
+            for (int r = rr; r < n; r += 32 / FFN_STREAMS)
+                cp_async4(dst + r * FFN_STREAMS + q, src + (int64_t)r * B + q);
+        }
+        cp_async_arrive(st.full + s);
+    }
+    if (q < nb) {
+        for (int r = rr; r < 3 + a.hist_rows; r += 32 / FFN_STREAMS) {
+            const int64_t k = (int64_t)(r < 3 ? 5 + r : a.hist_off + r - 3) * B
+                              + b0 + q;
+            a.state_out[k] = a.state_in[k];
+        }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <int U, int NBV, int NQ, int NPB>
+__global__ void __launch_bounds__(FFN_WARPS * 32)
+ff_scan_kernel_narrow(const FFScanArgs a)
+{
+    static_assert(NBV <= FFN_BOXES && NQ <= FFN_BOXES && NPB <= FFN_BOXES,
+                  "a box warp holds FFN_BOXES boxes of 8 streams");
+    uint64_t *bars = reinterpret_cast<uint64_t *>(ff_dyn_smem);
+    FFStages st;
+    st.full = bars;
+    st.empty = bars + FF_STAGES;
+    st.tiles = reinterpret_cast<float *>(ff_dyn_smem + 16 * FF_STAGES);
+    float *rings = st.tiles + FF_STAGES * FF_TILE_ROWS * FFN_STREAMS;
+
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int64_t B = a.B;
+    const int64_t b0 = (int64_t)blockIdx.x * FFN_STREAMS;
+    const int nb = B - b0 < FFN_STREAMS ? (int)(B - b0) : FFN_STREAMS;
+    const int s = lane % FFN_STREAMS;
+    const int col = s < nb ? s : 0;   // the stream this lane runs
+    const int box = lane / FFN_STREAMS;
+    const bool live = s < nb;         // lanes 8-31 of warps 0-1 run copies
+    const int64_t b = b0 + col;
+    const uint32_t Bu = (uint32_t)B;
+    const float *sti = a.state_in;
+    float *sto = a.state_out;
+
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < FF_STAGES; ++i) {
+            mbar_init(st.full + i, 32);
+            mbar_init(st.empty + i, FFN_CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+
+    // shared rings, [rows][32] each, lane = column: rv (warp 4), rq (warp
+    // 3), rf and the product ring of the lane's box (warp 2)
+    float *rv = rings + lane;
+    float *rq = rv + a.rv_ring * 32;
+    float *rf = rq + a.rq_ring * 32;
+    float *rp = rf + a.rf_ring * 32;
+    const int rv_off = a.ring_off;
+    const int rf_off = rv_off + a.rv_ring;
+    const int rq_off = rf_off + a.rf_ring;
+    const int rp_off = rq_off + a.rq_ring;
+    const int64_t TB = a.T * B;
+
+    if (warp == 0) {
+        FFNEnvRole r;
+        r.env = ff_row(sti, 0, B, b, true);
+        r.pcount = ff_row(sti, 4, B, b, true);
+        r.ew0 = a.enve_w0;
+        r.ew1 = a.enve_w1;
+        r.silence = a.silence;
+        r.etu = a.etu;
+        r.B = Bu;
+        r.valid = live && box == 0;
+        r.out.init(a.deps + (int64_t)(NBV + 1) * TB, b);
+        ffn_consume<U>(r, st, a.T, a.base, col, lane);
+        if (r.valid) {
+            sto[0 * B + b] = r.env;
+            sto[4 * B + b] = r.pcount;
+        }
+    } else if (warp == 1) {
+        FFNFiltRole r;
+        r.w1 = ff_row(sti, 1, B, b, true);
+        r.mdev = ff_row(sti, 2, B, b, true);
+        r.avg = ff_row(sti, 3, B, b, true);
+        r.iir_a = a.iir_a;
+        r.mw0 = a.mdev_w0;
+        r.mw1 = a.mdev_w1;
+        r.aw0 = a.mean_w0;
+        r.aw1 = a.mean_w1;
+        r.B = Bu;
+        r.valid = live && box == 0;
+        r.filt_out.init(a.deps + (int64_t)NBV * TB, b);
+        r.mdev_out.init(a.out_mdev, b);
+        r.avg_out.init(a.out_avg, b);
+        r.put_mdev = r.valid && a.out_mdev != nullptr;
+        r.put_avg = r.valid && a.out_avg != nullptr;
+        ffn_consume<U>(r, st, a.T, a.base, col, lane);
+        if (r.valid) {
+            sto[1 * B + b] = r.w1;
+            sto[2 * B + b] = r.mdev;
+            sto[3 * B + b] = r.avg;
+        }
+    } else if (warp == 2) {
+        const int i = box < NPB ? box : 0;
+        int off = rp_off;
+        for (int j = 0; j < i; ++j) off += a.rp_ring[j];
+        FFNProdRole r;
+        r.w1 = ff_row(sti, 1, B, b, true);
+        r.iir_a = a.iir_a;
+        r.s = ff_row(sti, a.sums_off + NBV + NQ + i, B, b, true);
+        r.lag = a.pb_lag[i];
+        r.box = a.pb_box[i];
+        r.pmask = a.rp_ring[i] - 1;
+        r.fmask = a.rf_ring - 1;
+        r.rf = rf;
+        r.rp = rp;
+        r.B = Bu;
+        r.valid = live && box < NPB;
+        r.out.init(a.out_p[i], b);
+        r.put = r.valid && a.out_p[i] != nullptr;
+        ff_ring_in(rf, sti, rf_off, a.rf_ring, B, b, true);
+        ff_ring_in(rp, sti, off, a.rp_ring[i], B, b, true);
+        ffn_consume<U>(r, st, a.T, a.base, col, lane);
+        if (r.valid) {
+            sto[(int64_t)(a.sums_off + NBV + NQ + i) * B + b] = r.s;
+            ff_ring_out(rp, sto, off, a.rp_ring[i], B, b, true);
+        }
+        ff_ring_out(rf, sto, rf_off, a.rf_ring, B, b, live && box == 0);
+    } else if (warp == 3) {
+        const int i = box < NQ ? box : 0;
+        FFNQRole r;
+        r.w1 = ff_row(sti, 1, B, b, true);
+        r.iir_a = a.iir_a;
+        r.s = ff_row(sti, a.sums_off + NBV + i, B, b, true);
+        r.w = a.q_w[i];
+        r.mask = a.rq_ring - 1;
+        r.ring = rq;
+        r.B = Bu;
+        r.valid = live && box < NQ;
+        r.out.init(a.out_q[i], b);
+        r.put = r.valid && a.out_q[i] != nullptr;
+        ff_ring_in(rq, sti, rq_off, a.rq_ring, B, b, true);
+        ffn_consume<U>(r, st, a.T, a.base, col, lane);
+        if (r.valid) sto[(int64_t)(a.sums_off + NBV + i) * B + b] = r.s;
+        ff_ring_out(rq, sto, rq_off, a.rq_ring, B, b, live && box == 0);
+    } else if (warp == 4) {
+        const int i = box < NBV ? box : 0;
+        FFNBvRole r;
+        r.s = ff_row(sti, a.sums_off + i, B, b, true);
+        r.w = a.bv_w[i];
+        r.mask = a.rv_ring - 1;
+        r.ring = rv;
+        r.B = Bu;
+        r.valid = live && box < NBV;
+        r.out.init(a.deps + (int64_t)i * TB, b);
+        ff_ring_in(rv, sti, rv_off, a.rv_ring, B, b, true);
+        ffn_consume<U>(r, st, a.T, a.base, col, lane);
+        if (r.valid) sto[(int64_t)(a.sums_off + i) * B + b] = r.s;
+        ff_ring_out(rv, sto, rv_off, a.rv_ring, B, b, live && box == 0);
+    } else {
+        ffn_produce(a, st, lane, b0, nb);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // ff_mask_kernel: mod_depth, detect_mask and the history advance, parallel
 // in time
 //
@@ -1106,6 +1555,18 @@ static FFScanKernel ff_scan_pick(int group, int nbv, int nq, int npb)
     return nullptr;
 }
 
+// ff_scan_kernel_narrow's instantiations: those of ff_scan_kernel
+static FFScanKernel ffn_scan_pick(int group, int nbv, int nq, int npb)
+{
+    if (nq != 2 || npb != 3) return nullptr;
+#define FFN_PICK(U_, NBV_) \
+    if (group == U_ && nbv == NBV_) return ff_scan_kernel_narrow<U_, NBV_, 2, 3>;
+    FFN_PICK(6, 4) FFN_PICK(2, 4) FFN_PICK(1, 4)
+    FFN_PICK(6, 3) FFN_PICK(2, 3) FFN_PICK(1, 3)
+#undef FFN_PICK
+    return nullptr;
+}
+
 // the least distance, in steps, between a ring write and a read of the
 // same ring (at least 1: a group of one step is the sequential order)
 static int ff_min_distance(const FFScanArgs *a)
@@ -1328,6 +1789,38 @@ int nfclab_ff_scan(const FFScanArgs *a, int device, int threads,
                              (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     const int64_t blocks = (a->B + 31) / 32;
+    k<<<(unsigned)blocks, threads, (size_t)smem_bytes,
+        (cudaStream_t)stream>>>(*a);
+    return (int)cudaGetLastError();
+}
+
+// Queues ff_scan_kernel_narrow, as nfclab_ff_scan queues ff_scan_kernel:
+// refused (cudaErrorInvalidValue) unless `threads` is FFN_WARPS * 32,
+// `smem_bytes` holds the barriers, the [FF_TILE_ROWS, 8] stages and the
+// rings (rv, rq, rf and the largest product ring, 32 columns each), 1 <= B
+// <= 2^25, the counts and group size are instantiated, and the group is no
+// longer than the least box width and lag.
+int nfclab_ff_scan_narrow(const FFScanArgs *a, int device, int threads,
+                          int64_t smem_bytes, void *stream)
+{
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    int rp = 0;
+    for (int i = 0; i < a->n_pb && i < FF_MAX_PB; ++i)
+        rp = a->rp_ring[i] > rp ? a->rp_ring[i] : rp;
+    const int64_t need = 16LL * FF_STAGES
+        + 4LL * FF_STAGES * FF_TILE_ROWS * FFN_STREAMS
+        + 128LL * (a->rv_ring + a->rq_ring + a->rf_ring + rp);
+    const FFScanKernel k = ffn_scan_pick(a->group, a->n_bv, a->n_q, a->n_pb);
+    if (k == nullptr || threads != FFN_WARPS * 32 || smem_bytes < need
+        || a->B < 1 || a->B > (1LL << 25)
+        || a->group > ff_min_distance(a))
+        return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute((const void *)k,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    const int64_t blocks = (a->B + FFN_STREAMS - 1) / FFN_STREAMS;
     k<<<(unsigned)blocks, threads, (size_t)smem_bytes,
         (cudaStream_t)stream>>>(*a);
     return (int)cudaGetLastError();

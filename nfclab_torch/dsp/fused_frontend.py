@@ -342,7 +342,9 @@ def _f32(x) -> float:
 
 class _Kernel:
     """A CUDA kernel's launch count: plus one at every launch of the kernel
-    (the plain versions never count)."""
+    (the plain versions never count).  SCAN counts every launch of the
+    scan, on either kernel; SCAN_NARROW those on ff_scan_kernel_narrow
+    (kernels.fused.scan_narrow chooses)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -350,6 +352,7 @@ class _Kernel:
 
 
 SCAN = _Kernel("fused_scan")
+SCAN_NARROW = _Kernel("fused_scan_narrow")
 MASK = _Kernel("fused_mask")
 KERNELS = (SCAN, MASK)
 
@@ -515,8 +518,9 @@ def _scan_cuda(value_tm, state_in, base, pt, plan, keep=()):
     extra = {n: torch.empty(T, B, dtype=torch.float32, device=value_tm.device)
              for n in _extra_names(plan) if n in keep}
     state_out = torch.empty_like(state_in)
-    kf.launch_scan(value_tm, state_in, state_out, deps, extra, base, pt,
-                   plan, _layout(plan))
+    if kf.launch_scan(value_tm, state_in, state_out, deps, extra, base, pt,
+                      plan, _layout(plan)):
+        SCAN_NARROW.launches += 1
     SCAN.launches += 1
     return deps, extra, state_out
 

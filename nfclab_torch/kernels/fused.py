@@ -31,6 +31,12 @@ SCAN_TILE_ROWS = 120  # samples per tile: a multiple of every group size
 SCAN_GROUPS = (6, 2, 1)              # instantiated ring-read group sizes
 SCAN_COUNTS = ((4, 2, 3), (3, 2, 3))  # instantiated (bv, q, product) counts
 SCAN_MAX_STREAMS = 1 << 25           # 32-bit offsets within a tile
+# ff_scan_kernel_narrow: 8 streams per block, a lane per (stream, box) in
+# the box warps; six warps (envelope, filter, product boxes, q boxes,
+# raw-value boxes, the producer)
+SCAN_NARROW_THREADS = 192
+SCAN_NARROW_STREAMS = 8
+SCAN_NARROW_BOXES = 32 // SCAN_NARROW_STREAMS   # box slots of a stream
 # ff_mask_kernel: a span of rows and 32 streams per block (16 where the
 # plan's rings need it), sixteen consumer warps and four producer warps
 # that stage each lag window of a channel into a shared ring
@@ -122,6 +128,10 @@ def bind(path) -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.nfclab_ff_scan.restype = ctypes.c_int
+    # the narrow scan (absent from libraries built before it)
+    if hasattr(lib, "nfclab_ff_scan_narrow"):
+        lib.nfclab_ff_scan_narrow.argtypes = lib.nfclab_ff_scan.argtypes
+        lib.nfclab_ff_scan_narrow.restype = ctypes.c_int
     lib.nfclab_ff_mask.argtypes = [
         ctypes.POINTER(FFMaskArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
@@ -214,9 +224,37 @@ def scan_smem(ring_rows: int) -> int:
     return 16 * SCAN_STAGES + 128 * (SCAN_STAGES * SCAN_TILE_ROWS + ring_rows)
 
 
+def scan_narrow_smem(plan) -> int:
+    """Shared memory of one ff_scan_kernel_narrow block: the barriers, the
+    [tile rows, 8] stages, and the rv, rq and rf rings and the largest
+    product ring, 32 columns each (a box lane keeps its own copy)."""
+    rows = plan.rv_ring + plan.rq_ring + plan.rf_ring + max(plan.rp_rings)
+    return (16 * SCAN_STAGES
+            + 4 * SCAN_STAGES * SCAN_TILE_ROWS * SCAN_NARROW_STREAMS
+            + 128 * rows)
+
+
+def scan_narrow(B: int, plan, sms: int) -> bool:
+    """Whether a scan of B streams runs on ff_scan_kernel_narrow: where
+    each role's box count fits a stream's box lanes, its rings fit a block,
+    and its blocks (8 streams each) fill no more than the card's `sms`
+    SMs, one block each: there it measured faster than ff_scan_kernel."""
+    fits = (max(len(plan.bv_widths), len(plan.q_widths), len(plan.pb))
+            <= SCAN_NARROW_BOXES and scan_narrow_smem(plan) <= SMEM_LIMIT)
+    return fits and -(-B // SCAN_NARROW_STREAMS) <= sms
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
-                pt, plan, lay):
-    """Queue ff_scan_kernel on the current stream."""
+                pt, plan, lay) -> bool:
+    """Queue the scan on the current stream: ff_scan_kernel_narrow where
+    ``scan_narrow`` says so for the card, else ff_scan_kernel.  Returns
+    whether the narrow kernel was queued."""
     _limits(plan)
     counts = (len(plan.bv_widths), len(plan.q_widths), len(plan.pb))
     if counts not in SCAN_COUNTS:
@@ -252,15 +290,23 @@ def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
     a.hist_off, a.hist_rows = lay.hist_off, lay.hist_rows
     a.sums_off = lay.sums_off
     a.group = scan_group(plan)
+    stream = torch.cuda.current_stream(value_tm.device).cuda_stream
+    index = value_tm.device.index
+    if (hasattr(lib, "nfclab_ff_scan_narrow")
+            and scan_narrow(B, plan, sm_count(index))):
+        check(lib, lib.nfclab_ff_scan_narrow(
+            ctypes.byref(a), index, SCAN_NARROW_THREADS,
+            scan_narrow_smem(plan), stream), "ff_scan_narrow")
+        return True
     smem = scan_smem(lay.ring_rows)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"rings of {lay.ring_rows} rows and {SCAN_STAGES} staged tiles "
             f"need {smem} B of shared memory per block (limit {SMEM_LIMIT})"
         )
-    stream = torch.cuda.current_stream(value_tm.device).cuda_stream
-    check(lib, lib.nfclab_ff_scan(ctypes.byref(a), value_tm.device.index,
-                                   SCAN_THREADS, smem, stream), "ff_scan")
+    check(lib, lib.nfclab_ff_scan(ctypes.byref(a), index, SCAN_THREADS,
+                                   smem, stream), "ff_scan")
+    return False
 
 
 def mask_ring_rows(spread: int) -> int:

@@ -48,13 +48,16 @@ from ..core.params import SignalParams
 from ..dsp.cuda_channels import (
     _WARMUP, box_keys, idx_key_map, resolve_device,
 )
+from ..dsp.fused_frontend import SCAN, SCAN_NARROW
 from . import trace
 from .decoder import CarrierDetector, DecoderContext, walk
 from .streaming import StreamingNfcDecoder
 
-# the mask farm's counters beyond nfclab's (see CudaStreamFarm.stats)
+# the mask farm's counters beyond nfclab's (see CudaStreamFarm.stats):
+# seconds, then the scan's launches
 STEP_COUNTERS = ("io_idle_s", "upload_s", "launch_s", "compact_s", "fetch_s",
-                 "verify_s", "repair_s", "walk_busy_s", "walk_cpu_s")
+                 "verify_s", "repair_s", "walk_busy_s", "walk_cpu_s",
+                 "scan_launches", "scan_narrow_launches")
 
 # the segments policy's lane ceiling: nfclab's kernel tile width, kept so
 # the farm splits a window exactly as nfclab's does (the CUDA kernels
@@ -471,8 +474,12 @@ class CudaStreamFarm:
     (``upload_s``, ``launch_s``, ``compact_s``, ``fetch_s``,
     ``verify_s``, ``repair_s``: cuda_channels.StepSums) and, over
     streams, each stream's walk in wall seconds (``walk_busy_s``) and in
-    its thread's CPU seconds (``walk_cpu_s``).  While spans record (runtime/trace) the
-    same steps are spans, those of one window sharing its ``seq``."""
+    its thread's CPU seconds (``walk_cpu_s``); and the scan's launches in
+    the device passes (``scan_launches``), of them those on the narrow
+    kernel (``scan_narrow_launches``; fused_frontend.SCAN and
+    SCAN_NARROW, the process's counts, gained while a pass runs).  While
+    spans record (runtime/trace) the same steps are spans, those of one
+    window sharing its ``seq``."""
 
     def __init__(
         self,
@@ -589,7 +596,8 @@ class CudaStreamFarm:
                       "wait_s": 0.0, "drained_samples": 0,
                       "seg_dispatches": 0, "repaired_streams": 0,
                       "repair_chunks": 0, "seg_backoff_windows": 0,
-                      **{k: 0.0 for k in STEP_COUNTERS}}
+                      **{k: 0.0 for k in STEP_COUNTERS if k.endswith("_s")},
+                      "scan_launches": 0, "scan_narrow_launches": 0}
         # the IO thread's own: windows passed, samples passed, the end of
         # the last pass; the caller's: windows walked
         self._io_seq = self._io_clock = 0
@@ -684,6 +692,7 @@ class CudaStreamFarm:
             use_seg = False
             kind = "backoff"
         lap = StepSums(self.stats, t0, seq)
+        scans = (SCAN.launches, SCAN_NARROW.launches)
         try:
             with trace.span("farm.device_pass", kind=kind, seq=seq, lo=lo,
                             hi=self._io_clock):
@@ -694,6 +703,9 @@ class CudaStreamFarm:
                         self._stream.synchronize()
         finally:
             self._io_end = time.perf_counter()
+            self.stats["scan_launches"] += SCAN.launches - scans[0]
+            self.stats["scan_narrow_launches"] += (SCAN_NARROW.launches
+                                                   - scans[1])
         self.stats["device_s"] += self._io_end - t0
         self.stats["dispatches"] += 1
         return per_stream

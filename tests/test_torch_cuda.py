@@ -63,6 +63,90 @@ def test_kernels_equal_plain_on_card(cuda, select):
     assert ff.MASK.launches == before[1] + 2
 
 
+def _scan_lanes(b: int, t: int, seed: int) -> np.ndarray:
+    """[t, b] f32: carrier lanes (ASK dips, field-off gaps, noise) with a
+    template window at a seeded offset and gain in the first lanes, then
+    in every lane a stretch of zero-mean noise (the field off, as a radio
+    gives it: the envelope goes negative) and, in every other lane,
+    zeros of both signs."""
+    from nfclab_torch.experiments.scan_levers import carrier_lanes
+
+    x = carrier_lanes(b, t, seed=seed)
+    rng = np.random.default_rng(seed)
+    tpl = templates()
+    for i in range(min(b, 2 * len(tpl))):
+        src = tpl[i % len(tpl)].samples[:t]
+        off = int(rng.integers(0, t - len(src) + 1))
+        x[off : off + len(src), i] = src * np.float32(rng.uniform(0.5, 1.5))
+    lo, n = t // 3, t // 6
+    x[lo : lo + n] = rng.standard_normal((n, b)).astype(np.float32) \
+        * np.float32(2e-4)
+    zeros = x[lo + n : lo + n + n // 4, 1::2]
+    zeros[:] = np.where(rng.random(zeros.shape) < 0.5, np.float32(0.0),
+                        np.float32(-0.0))
+    return x
+
+
+@pytest.mark.parametrize("select", ["mask", "every"])
+@pytest.mark.parametrize("T", [65536, 120 * 5 + 7])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 8, "first_wide"])
+@pytest.mark.parametrize("rate", [10_000_000, 3_200_000, 1_000_000,
+                                  20_000_000])
+def test_narrow_scan_equals_wide_and_plain_on_card(cuda, monkeypatch, rate,
+                                                   B, T, select):
+    """ff_scan_kernel_narrow against ff_scan_kernel and _scan_plain on
+    every output (deps, the selected channels, state_out) over two chunks
+    from a zero state, the second from the first's state, the kernel
+    switched between them both ways; "first_wide" is the first B the rule
+    gives ff_scan_kernel.  _scan_plain (a per-step loop) at the ragged T,
+    the kernels against each other at both."""
+    from nfclab_torch.core.params import SignalParams
+    from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.dsp.frontend import _params_tuple
+    from nfclab_torch.kernels import fused as kf
+
+    plan = ff.kernel_plan(rate)
+    pt = _params_tuple(SignalParams(rate))
+    sms = kf.sm_count(cuda.index)
+    if B == "first_wide":
+        B = kf.SCAN_NARROW_STREAMS * sms + 1
+        assert kf.scan_narrow(B - 1, plan, sms)
+    assert kf.scan_narrow(B, plan, sms) == (B <= kf.SCAN_NARROW_STREAMS * sms)
+    x = torch.from_numpy(_scan_lanes(B, 2 * T, seed=rate % 997 + B)).to(cuda)
+    keep = ff._extra_names(plan) if select == "every" else ()
+
+    def chain(kinds):
+        st = torch.zeros(plan.nstate, B, device=cuda)
+        outs = []
+        for c, kind in enumerate(kinds):
+            xc = x[c * T : (c + 1) * T].contiguous()
+            if kind == "plain":
+                out = ff._scan_plain(xc, st, c * T, pt, plan, keep)
+            else:
+                monkeypatch.setattr(kf, "scan_narrow",
+                                    lambda *a, n=kind == "narrow": n)
+                n0 = ff.SCAN_NARROW.launches
+                out = ff.fused_scan(xc, st, c * T, pt, plan, keep)
+                assert ff.SCAN_NARROW.launches == n0 + (kind == "narrow")
+            st = out[2]
+            outs.append(out)
+        return outs
+
+    want = chain(("wide", "wide"))
+    kinds = [("narrow", "narrow"), ("narrow", "wide"), ("wide", "narrow")]
+    if T < 65536:
+        kinds.append(("plain", "plain"))
+    for k in kinds:
+        got = chain(k)
+        for c in range(2):
+            assert _same(got[c][0], want[c][0]), (k, c, "deps")
+            assert set(got[c][1]) == set(keep)
+            for name in keep:
+                assert _same(got[c][1][name], want[c][1][name]), (k, c, name)
+            assert _same(got[c][2], want[c][2]), (k, c, "state")
+        del got
+
+
 def test_chained_masks_cuda_equal_cpu(cuda, monkeypatch):
     from nfclab_torch.dsp import cuda_channels as cc
 

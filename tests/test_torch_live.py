@@ -320,17 +320,19 @@ def test_dispatch_failure_ends_the_task_in_error(small_chunk, monkeypatch):
 @pytest.mark.cuda
 def test_mask_task_on_the_card(cuda, live_farms):
     """RadioDecoderTask(frontend="mask") on the card, at the real chunk:
-    frames equal the host streaming decoder's, both kernels launched,
-    the farm in 4 segments."""
+    frames equal the host streaming decoder's, both kernels launched (the
+    scan on the narrow kernel at the live path's widths), the farm in 4
+    segments."""
     from nfclab_torch.dsp import fused_frontend as ff
 
     x = np.concatenate([torch_synth.lane(tp, 8 * BLOCK, seed=600 + i)[0]
                         for i, tp in enumerate(TEMPLATES)])
-    for k in ff.KERNELS:
+    for k in (*ff.KERNELS, ff.SCAN_NARROW):
         k.launches = 0
     got, st, _ = _run_task(False, x, "mask")
     _no_fallback(st)
     assert all(k.launches > 0 for k in ff.KERNELS)
+    assert ff.SCAN_NARROW.launches == ff.SCAN.launches
     assert live_farms[0].segments == 4
     assert live_farms[0].stats["seg_dispatches"] >= 1
     assert got == _host_frames(x)

@@ -1,8 +1,10 @@
 """What the scan kernels' launchers decide on the host, on the CPU: the
 ring-read group size of ff_scan_kernel chosen by plan, its shared memory,
-the instantiated box counts, and the stream limits of both scans; and, in
-numpy, that a group of U steps which issues every ring read before any ring
-write gives the sequential sums for the plan's rings."""
+the instantiated box counts, and the stream limits of both scans; which of
+ff_scan_kernel and ff_scan_kernel_narrow a scan takes, the narrow kernel's
+shared memory, and the counts of their launches; and, in numpy, that a
+group of U steps which issues every ring read before any ring write gives
+the sequential sums for the plan's rings."""
 
 import numpy as np
 import pytest
@@ -100,6 +102,180 @@ def test_fused_scan_launcher_refuses_what_it_was_not_built_for():
     wide = x.expand(1, kf.SCAN_MAX_STREAMS + 1)
     with pytest.raises(ValueError, match="streams a call"):
         kf.launch_scan(wide, None, None, None, {}, 0, None, plan, lay)
+
+
+# ff_scan_kernel_narrow: which kernel the launcher takes, and its shared
+# memory
+
+@pytest.mark.parametrize("rate,sms,narrow_up_to", [
+    (10_000_000, 132, 1056), (10_000_000, 1, 8), (10_000_000, 4, 32),
+    (3_200_000, 132, 1056), (1_000_000, 132, 1056), (20_000_000, 132, 1056),
+    (500_000, 114, 912),
+    (40_000_000, 132, 0),     # the rings do not fit a block
+])
+def test_scan_narrow_rule(rate, sms, narrow_up_to):
+    """The narrow kernel while its blocks of 8 streams fill no more than
+    the card's SMs, where the plan's rings fit; ff_scan_kernel past that."""
+    plan = ff.kernel_plan(rate)
+    for B in (1, 2, 3, 4, 5, 8, 9, 16, 64, 256, 1024, 1056, 1057, 2048,
+              narrow_up_to, narrow_up_to + 1):
+        if B >= 1:
+            assert kf.scan_narrow(B, plan, sms) == (B <= narrow_up_to), B
+
+
+def test_scan_narrow_needs_box_lanes():
+    """A role with more boxes than a stream's four box lanes goes to
+    ff_scan_kernel, whatever B."""
+    plan = ff.kernel_plan(10_000_000)
+    five = plan._replace(bv_widths=plan.bv_widths + (120,))
+    assert kf.scan_narrow(1, plan, 132)
+    assert not kf.scan_narrow(1, five, 132)
+
+
+def test_every_plan_fits_the_narrow_scan():
+    """From 0.5 to 27 MS/s the narrow kernel's stages and rings (rv, rq,
+    rf and the largest product ring, a column per box lane) fit a block,
+    in no more than ff_scan_kernel's shared memory; its stages hold whole
+    groups."""
+    assert kf.SCAN_NARROW_THREADS == 6 * 32
+    assert kf.SCAN_NARROW_STREAMS * kf.SCAN_NARROW_BOXES == 32
+    for rate in range(500_000, 27_000_001, 100_000):
+        plan = ff.kernel_plan(rate)
+        smem = kf.scan_narrow_smem(plan)
+        assert smem <= kf.SMEM_LIMIT, rate
+        assert smem <= kf.scan_smem(ff._layout(plan).ring_rows), rate
+        assert kf.scan_narrow(1, plan, 132), rate
+    plan = ff.kernel_plan(10_000_000)
+    assert kf.scan_narrow_smem(plan) == (
+        16 * 4 + 4 * 4 * 120 * 8 + 128 * (128 + 256 + 128 + 32))
+
+
+class _FakeLib:
+    """The two scan entry points, recording their calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def nfclab_ff_scan(self, args, device, threads, smem, stream):
+        self.calls.append(("wide", args._obj.B, threads, smem))
+        return 0
+
+    def nfclab_ff_scan_narrow(self, args, device, threads, smem, stream):
+        self.calls.append(("narrow", args._obj.B, threads, smem))
+        return 0
+
+
+@pytest.mark.parametrize("B,sms,kind", [(1, 132, "narrow"),
+                                        (4, 132, "narrow"),
+                                        (1056, 132, "narrow"),
+                                        (1057, 132, "wide"),
+                                        (9, 1, "wide")])
+def test_launch_scan_takes_the_rule(monkeypatch, B, sms, kind):
+    """launch_scan queues the kernel the rule names, with its block and
+    shared memory, and says which."""
+    plan = ff.kernel_plan(10_000_000)
+    lay = ff._layout(plan)
+    lib = _FakeLib()
+    monkeypatch.setattr(kf, "library", lambda: lib)
+    monkeypatch.setattr(kf, "sm_count", lambda index: sms)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    x = torch.zeros(3, B)
+    pt = (0.5,) * 7 + (94,)
+    narrow = kf.launch_scan(x, x, x, x, {}, 0, pt, plan, lay)
+    assert narrow == (kind == "narrow")
+    want = ((kind, B, kf.SCAN_NARROW_THREADS, kf.scan_narrow_smem(plan))
+            if narrow else
+            (kind, B, kf.SCAN_THREADS, kf.scan_smem(lay.ring_rows)))
+    assert lib.calls == [want]
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_scan_counters(monkeypatch, narrow):
+    """SCAN counts every launch of the scan, SCAN_NARROW those on the
+    narrow kernel (the launcher stubbed)."""
+    plan = ff.kernel_plan(10_000_000)
+    monkeypatch.setattr(kf, "launch_scan", lambda *a: narrow)
+    s0, n0 = ff.SCAN.launches, ff.SCAN_NARROW.launches
+    x = torch.zeros(5, 2)
+    ff._scan_cuda(x, torch.zeros(plan.nstate, 2), 0, None, plan)
+    assert ff.SCAN.launches == s0 + 1
+    assert ff.SCAN_NARROW.launches == n0 + int(narrow)
+
+
+def test_farm_counts_the_scan_launches(monkeypatch):
+    """CudaStreamFarm.stats scan_launches and scan_narrow_launches: the
+    scan's launches gained in each device pass (the engines stubbed, each
+    pass launching three scans, two of them narrow)."""
+    from nfclab_torch.runtime.farm import STEP_COUNTERS, CudaStreamFarm
+
+    farm = CudaStreamFarm(1, 10_000_000, fetch="mask", device="cpu")
+    assert {"scan_launches", "scan_narrow_launches"} <= set(STEP_COUNTERS)
+    assert farm.stats["scan_launches"] == farm.stats[
+        "scan_narrow_launches"] == 0
+
+    def engines(batch, base0, use_seg, lap):
+        ff.SCAN.launches += 3
+        ff.SCAN_NARROW.launches += 2
+        return ["walked"]
+
+    monkeypatch.setattr(farm, "_run_engines", engines)
+    batch = np.zeros((1, 4096), np.float32)
+    assert farm._device_pass(batch, 0) == ["walked"]
+    ff.SCAN.launches += 5       # outside a pass: not counted
+    assert farm._device_pass(batch, 0) == ["walked"]
+    assert farm.stats["scan_launches"] == 6
+    assert farm.stats["scan_narrow_launches"] == 4
+
+
+def _env_near_narrow(v, env) -> bool:
+    """Mirror of ffn_env_near (csrc/fused_frontend.cu): the envelope test
+    by env's class, with no divide."""
+    with np.errstate(all="ignore"):
+        ad = np.abs(np.float32(v - env))
+    near_pos = float(ad) <= (26843545.0 / 536870912.0) * float(env)
+    if 0 < env < np.inf:
+        return near_pos
+    if -np.inf < env < 0:
+        return bool(ad == ad)
+    minus_zero = np.float32(env).view(np.uint32) == 0x80000000
+    return bool(minus_zero and ad > 0)
+
+
+def _env_near_quotient(v, env) -> bool:
+    """cond_env_diff(v, env) < 0.05f: the correctly rounded quotient."""
+    with np.errstate(all="ignore"):
+        q = np.abs(np.float32(v - env)) / env
+    return bool(q < np.float32(0.05))
+
+
+def test_narrow_env_test_is_the_quotient():
+    """ffn_env_near decides |v - env| / env < 0.05f as the divide does for
+    every class of env (+-0, subnormal, negative, +-inf, NaN) and v, and
+    on both sides of the threshold."""
+    f = np.float32
+    tiny = np.finfo(np.float32).tiny
+    specials = [0.0, -0.0, 1e-45, 1e-40, tiny, 1e-30, 0.5, 0.95, 1.0, 1.05,
+                3.0, 1e30, np.finfo(np.float32).max, np.inf, np.nan]
+    vals = [f(s) for x in specials for s in (x, -x)]
+    rng = np.random.default_rng(18)
+    env = (rng.uniform(-1, 1, 4000) * 10.0 ** rng.integers(-44, 38, 4000)
+           ).astype(np.float32)
+    rel = rng.uniform(-0.06, 0.06, 4000)
+    rel[::4] = np.float32(0.05) * rng.choice([-1, 1], 1000)
+    pairs = [(v, e) for v in vals for e in vals]
+    pairs += [(f(e * (1 + r)), e) for e, r in zip(env, rel)]
+    for e in env[:400]:      # v at e * 1.05 and its float neighbours
+        b = np.float32(e * np.float32(1.05))
+        pairs += [(b, e), (np.nextafter(b, f(np.inf)), e),
+                  (np.nextafter(b, f(-np.inf)), e)]
+    agree = [_env_near_narrow(v, e) == _env_near_quotient(v, e)
+             for v, e in pairs]
+    assert all(agree), [p for p, a in zip(pairs, agree) if not a][:5]
+    # every class of env decides both ways somewhere
+    for e in (f(-0.0), f(-2.0), f(3.0)):
+        got = {_env_near_narrow(v, e) for v in vals}
+        assert got == {True, False}, e
 
 
 def test_condition_scan_launcher_refuses_too_many_streams():
