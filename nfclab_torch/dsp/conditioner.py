@@ -52,9 +52,22 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     that name.  nfclab bucketed the block count to a power of two only to
     reuse jitted programs; here the block count is what the capture needs.
 
-    ``stats``, when given, receives ``blocks`` (the streams of pass 1),
-    ``repairs`` (the blocks scanned again) and ``edge_tracker_s`` (host
-    seconds of the edge tracker)."""
+    ``stats``, when given, adds to what it holds (so one dict can total
+    many captures): ``samples`` (conditioned), ``blocks`` (the streams of
+    pass 1), ``repairs`` (the blocks scanned again), and the host seconds
+    of each step, with no device sync the steps do not already make:
+    ``upload_s`` (the padded capture to the device and pass 1's gather),
+    ``pass1_s`` (pass 1's launch, the kept rows' gather and the boundary
+    rows' fetch, which waits for the kernel), ``verify_s`` (the boundary
+    checks, without the repairs), ``repair_s`` (each repair whole, ending
+    in its five ``.item()`` reads), ``fetch_s`` (the four arrays to the
+    host and the modulation depth) and ``edge_tracker_s``.  Each step is
+    also a span of ``runtime/trace`` while spans record: ``cond.upload``,
+    ``cond.pass1`` (``blocks``, ``span``), ``cond.verify`` with a
+    ``cond.repair`` (``block``) under it for each repair, ``cond.fetch``
+    and ``cond.edge_tracker``."""
+    from ..runtime import trace
+
     if block < 1 or halo < 1:
         raise ValueError("block and halo must be at least 1")
     dev = resolve_device(device)
@@ -67,73 +80,88 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     starts = np.arange(nb) * block
     scan_starts = np.maximum(starts - halo, 0)
     span = block + halo
-    pad_val = torch.from_numpy(
-        np.pad(value, (0, padded + halo - n), mode="edge")).to(dev)
-    # pass 1 works time-major: block b is stream b of a [span, nb] batch
-    first = torch.from_numpy(scan_starts).to(dev)
-    blocks = pad_val[torch.arange(span, device=dev)[:, None] + first[None, :]]
+    t0 = time.perf_counter()
+    with trace.span("cond.upload"):
+        pad_val = torch.from_numpy(
+            np.pad(value, (0, padded + halo - n), mode="edge")).to(dev)
+        # pass 1 works time-major: block b is stream b of a [span, nb] batch
+        first = torch.from_numpy(scan_starts).to(dev)
+        blocks = pad_val[torch.arange(span, device=dev)[:, None]
+                         + first[None, :]]
+    t1 = time.perf_counter()
 
-    # canonical warm-up init; block 0 gets the true initial state
-    first_v = blocks[0]
-    env0 = first_v.clone()
-    w10 = first_v * 10.0  # steady state of w = v + 0.9 w
-    mdev0 = torch.zeros(nb, dtype=torch.float32, device=dev)
-    avg0 = first_v.clone()
-    pulse0 = torch.zeros(nb, dtype=torch.int32, device=dev)
-    clock0 = first.to(torch.int32)
-    env0[0] = 0.0
-    w10[0] = 0.0
-    avg0[0] = 0.0
-    outs = dict(zip(_NAMES, condition_scan_tm(
-        blocks, env0, w10, mdev0, avg0, pulse0, clock0, pt)))
-    del blocks
+    with trace.span("cond.pass1", blocks=nb, span=span):
+        # canonical warm-up init; block 0 gets the true initial state
+        first_v = blocks[0]
+        env0 = first_v.clone()
+        w10 = first_v * 10.0  # steady state of w = v + 0.9 w
+        mdev0 = torch.zeros(nb, dtype=torch.float32, device=dev)
+        avg0 = first_v.clone()
+        pulse0 = torch.zeros(nb, dtype=torch.int32, device=dev)
+        clock0 = first.to(torch.int32)
+        env0[0] = 0.0
+        w10[0] = 0.0
+        avg0[0] = 0.0
+        outs = dict(zip(_NAMES, condition_scan_tm(
+            blocks, env0, w10, mdev0, avg0, pulse0, clock0, pt)))
+        del blocks
 
-    # block b keeps rows drop_b .. drop_b + block of its scan
-    drop = torch.from_numpy(starts - scan_starts).to(dev)
-    rows = drop[None, :] + torch.arange(block, device=dev)[:, None]
-    final = {k: outs[k].gather(0, rows).t().reshape(-1) for k in _FINAL}
-    # each block's finished state after its last kept sample, and its own
-    # state at the sample before its first kept one (block 0 has none)
-    end = {k: outs[k].gather(0, rows[-1:])[0].cpu().numpy()
-           for k in _STATE}
-    before = (drop - 1).clamp(min=0)[None, :]
-    bnd = {k: outs[k].gather(0, before)[0].cpu().numpy() for k in _STATE}
-    del outs, rows
+        # block b keeps rows drop_b .. drop_b + block of its scan
+        drop = torch.from_numpy(starts - scan_starts).to(dev)
+        rows = drop[None, :] + torch.arange(block, device=dev)[:, None]
+        final = {k: outs[k].gather(0, rows).t().reshape(-1) for k in _FINAL}
+        # each block's finished state after its last kept sample, and its
+        # own state at the sample before its first kept one (block 0 has
+        # none)
+        end = {k: outs[k].gather(0, rows[-1:])[0].cpu().numpy()
+               for k in _STATE}
+        before = (drop - 1).clamp(min=0)[None, :]
+        bnd = {k: outs[k].gather(0, before)[0].cpu().numpy() for k in _STATE}
+        del outs, rows
+    t2 = time.perf_counter()
 
     repairs = 0
-    for b in range(1, nb):
-        # bit equality: equal bits give equal futures
-        if all(bnd[k][b : b + 1].view(np.int32)
-               == end[k][b - 1 : b].view(np.int32) for k in _STATE):
-            continue
-        s = int(starts[b])
-        init = [torch.from_numpy(end[k][b - 1 : b].copy()).to(dev)
-                for k in _STATE[:4]]
-        init += [torch.from_numpy(end["pulse"][b - 1 : b].copy()).to(dev),
-                 torch.tensor([s], dtype=torch.int32, device=dev)]
-        rep = dict(zip(_NAMES, condition_scan_tm(
-            pad_val[s : s + block, None], *init, pt)))
-        for k in _FINAL:
-            final[k][s : s + block] = rep[k][:, 0]
-        for k in _STATE:
-            end[k][b] = rep[k][-1, 0].item()
-        repairs += 1
-    if stats is not None:
-        stats.update(blocks=nb, repairs=repairs)
+    repair_s = 0.0
+    with trace.span("cond.verify"):
+        for b in range(1, nb):
+            # bit equality: equal bits give equal futures
+            if all(bnd[k][b : b + 1].view(np.int32)
+                   == end[k][b - 1 : b].view(np.int32) for k in _STATE):
+                continue
+            t_r = time.perf_counter()
+            with trace.span("cond.repair", block=b):
+                s = int(starts[b])
+                init = [torch.from_numpy(end[k][b - 1 : b].copy()).to(dev)
+                        for k in _STATE[:4]]
+                init += [
+                    torch.from_numpy(end["pulse"][b - 1 : b].copy()).to(dev),
+                    torch.tensor([s], dtype=torch.int32, device=dev)]
+                rep = dict(zip(_NAMES, condition_scan_tm(
+                    pad_val[s : s + block, None], *init, pt)))
+                for k in _FINAL:
+                    final[k][s : s + block] = rep[k][:, 0]
+                for k in _STATE:
+                    end[k][b] = rep[k][-1, 0].item()
+            repair_s += time.perf_counter() - t_r
+            repairs += 1
+    t3 = time.perf_counter()
 
-    env, filt, mdev, avg = (final[k][:n].cpu().numpy()
-                            for k in ("env", "filt", "mdev", "avg"))
+    with trace.span("cond.fetch"):
+        env, filt, mdev, avg = (final[k][:n].cpu().numpy()
+                                for k in ("env", "filt", "mdev", "avg"))
 
-    # modulation depth on host with strict IEEE ops (NfcTech.cpp:74): this
-    # field feeds threshold comparisons in the detectors
-    with np.errstate(invalid="ignore", divide="ignore"):
-        clamped = np.maximum(np.float32(0.0), np.minimum(value, env))
-        mdepth = (env - clamped) / env
+        # modulation depth on host with strict IEEE ops (NfcTech.cpp:74):
+        # this field feeds threshold comparisons in the detectors
+        with np.errstate(invalid="ignore", divide="ignore"):
+            clamped = np.maximum(np.float32(0.0), np.minimum(value, env))
+            mdepth = (env - clamped) / env
+    t4 = time.perf_counter()
 
-    t0 = time.perf_counter()
-    epeak, etime = _edge_tracker(filt, params)
-    if stats is not None:
-        stats["edge_tracker_s"] = time.perf_counter() - t0
+    with trace.span("cond.edge_tracker"):
+        epeak, etime = _edge_tracker(filt, params)
+    trace.add_counts(stats, samples=n, blocks=nb, repairs=repairs, upload_s=t1 - t0,
+         pass1_s=t2 - t1, verify_s=t3 - t2 - repair_s, repair_s=repair_s,
+         fetch_s=t4 - t3, edge_tracker_s=time.perf_counter() - t4)
     return Conditioned(value, env, filt, mdev, avg, mdepth, epeak, etime)
 
 

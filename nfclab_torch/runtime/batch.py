@@ -124,6 +124,21 @@ def _walk_one(args) -> list[Frame]:
     )
 
 
+def _pool_map(pool, fn, items: list, stats: dict | None, trace) -> list:
+    """fn over items on `pool`, an executor shut down at the end, in order.
+    Submitting every item is the step ``batch.pool`` (``pool_s``: a
+    process pool starts its workers as the first items go in, and a spawn
+    worker boots while the parent waits); waiting for the results and the
+    shutdown is ``batch.walk`` (``walk_wait_s``)."""
+    with pool:
+        with trace.timed(stats, "pool_s", "batch.pool"):
+            results = pool.map(fn, items)
+        with trace.timed(stats, "walk_wait_s", "batch.walk"):
+            out = list(results)
+            pool.shutdown()
+    return out
+
+
 def decode_batch(
     paths: list[str],
     workers: int | None = None,
@@ -132,6 +147,7 @@ def decode_batch(
     pool: str = "process",
     keep_pool: bool = False,
     device="cuda",
+    stats: dict | None = None,
     **decoder_kwargs,
 ) -> dict[str, list[Frame]]:
     """Decode many wav captures: the device frontend in the parent process
@@ -141,9 +157,20 @@ def decode_batch(
     pool="thread" fans the walks over threads instead of processes: the hot
     native calls release the GIL for their ctypes duration, so threads
     scale on few-core hosts without paying interpreter boot + sample
-    pickling."""
+    pickling.
+
+    ``stats``, when given, adds to what it holds (one dict can total many
+    calls): ``captures``, ``samples`` (read by the parent), and the host
+    seconds of ``read_s`` (the WAVs), ``condition_s`` (the device
+    conditioner, capture by capture), ``pool_s`` (submitting the walks to
+    the pool) and ``walk_wait_s`` (waiting on the walks, or walking, and
+    the pool's shutdown), with the device conditioner's own counters
+    (``condition_jax``'s ``stats`` but its ``samples``).  Each step is a
+    span of ``runtime/trace`` while spans record: ``batch.read``,
+    ``batch.condition``, ``batch.pool``, ``batch.walk``."""
     from ..dsp.conditioner import condition_jax
     from ..native import condition_exact
+    from . import trace
 
     if frontend not in ("host", "mask", "fused"):
         raise ValueError(f"unknown frontend {frontend!r}")
@@ -151,6 +178,7 @@ def decode_batch(
         raise ValueError(f"unknown conditioner {conditioner!r}")
     if not paths:
         return {}
+    trace.add_counts(stats, captures=len(paths))
     power_thr = decoder_kwargs.get("power_level_threshold", 0.01)
     thresholds = decoder_kwargs.get("thresholds")
 
@@ -166,19 +194,24 @@ def decode_batch(
                 range(len(paths)),
                 key=lambda i: -os.path.getsize(paths[i]),
             )
-            ex = persistent_pool(workers)
-            frames = list(ex.map(
-                _walk_path,
-                [(paths[i], decoder_kwargs) for i in order],
-            ))
+            with trace.timed(stats, "pool_s", "batch.pool"):
+                ex = persistent_pool(workers)
+                results = ex.map(
+                    _walk_path,
+                    [(paths[i], decoder_kwargs) for i in order],
+                )
+            with trace.timed(stats, "walk_wait_s", "batch.walk"):
+                frames = list(results)
             return {paths[i]: f for i, f in zip(order, frames)}
 
     all_samples: list[np.ndarray] = []
     rates: list[int] = []
-    for path in paths:
-        samples, info = read_wav(path)
-        all_samples.append(samples)
-        rates.append(info.sample_rate)
+    with trace.timed(stats, "read_s", "batch.read"):
+        for path in paths:
+            samples, info = read_wav(path)
+            all_samples.append(samples)
+            rates.append(info.sample_rate)
+    trace.add_counts(stats, samples=sum(len(x) for x in all_samples))
 
     channel_sets: list = [None] * len(paths)
     cond_sets: list = [None] * len(paths)
@@ -239,6 +272,7 @@ def decode_batch(
             )
 
     jobs = []
+    cond_stats = None if stats is None else {}
     for samples, rate, cond, tpu_channels in zip(
         all_samples, rates, cond_sets, channel_sets
     ):
@@ -247,7 +281,10 @@ def decode_batch(
         if frontend == "host" and conditioner == "jax":
             # device conditioning runs in the parent (workers never touch
             # the device)
-            cond = condition_jax(samples, params, device=device)
+            with trace.timed(stats, "condition_s", "batch.condition",
+                             samples=len(samples)):
+                cond = condition_jax(samples, params, device=device,
+                                     stats=cond_stats)
         # otherwise native conditioning runs IN the workers
         # (cond_arrays=None): it is the dominant host cost, so serializing
         # it in the parent would cap the pool's speedup
@@ -265,6 +302,10 @@ def decode_batch(
         jobs.append(
             (samples, rate, cond_arrays, tpu_channels, decoder_kwargs)
         )
+    if cond_stats:
+        # the captures' samples are counted once, as read
+        cond_stats.pop("samples")
+        trace.add_counts(stats, **cond_stats)
 
     fork_ok = _fork_ok()
     if workers is None:
@@ -276,19 +317,16 @@ def decode_batch(
             # costs more than it buys below ~4 cores; threads scale even
             # there (GIL-free native walks)
             workers = 1 if ncpu <= 2 else min(len(paths), ncpu)
-    results: dict[str, list[Frame]] = {}
     if workers <= 1 or len(paths) == 1:
-        for path, job in zip(paths, jobs):
-            results[path] = _walk_one(job)
-        return results
+        with trace.timed(stats, "walk_wait_s", "batch.walk"):
+            return {path: _walk_one(job) for path, job in zip(paths, jobs)}
 
     if pool == "thread":
         from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=workers) as tp:
-            for path, frames in zip(paths, tp.map(_walk_one, jobs)):
-                results[path] = frames
-        return results
+        frames = _pool_map(ThreadPoolExecutor(max_workers=workers),
+                           _walk_one, jobs, stats, trace)
+        return dict(zip(paths, frames))
 
     if fork_ok:
         # fork workers inherit the job list as copy-on-write pages: no
@@ -297,23 +335,17 @@ def decode_batch(
         global _FORK_JOBS
         _FORK_JOBS = jobs
         try:
-            with ProcessPoolExecutor(
+            frames = _pool_map(ProcessPoolExecutor(
                 max_workers=workers,
                 mp_context=multiprocessing.get_context("fork"),
-            ) as pp:
-                for path, frames in zip(
-                    paths, pp.map(_walk_fork, range(len(jobs)))
-                ):
-                    results[path] = frames
+            ), _walk_fork, list(range(len(jobs))), stats, trace)
         finally:
             _FORK_JOBS = None
-        return results
+        return dict(zip(paths, frames))
 
     # spawn, not fork: the parent holds a CUDA context or other threads,
     # and forking it risks deadlock in the children
-    with ProcessPoolExecutor(
+    frames = _pool_map(ProcessPoolExecutor(
         max_workers=workers, mp_context=multiprocessing.get_context("spawn")
-    ) as pp:
-        for path, frames in zip(paths, pp.map(_walk_one, jobs)):
-            results[path] = frames
-    return results
+    ), _walk_one, jobs, stats, trace)
+    return dict(zip(paths, frames))

@@ -1,4 +1,5 @@
-"""Host spans of the live mask path, on the clock of ``time.perf_counter``.
+"""Host spans of the live mask path and of batch decode, on the clock of
+``time.perf_counter``.
 
 A span is one step of the program on one thread: a tuple of its name, its
 start and end, the thread's name, its parent span's id (None at the top)
@@ -34,10 +35,19 @@ The spans of the live path (``nfclab_torch/runtime/pipeline.py`` and
   backoff or flush) and its steps ``upload``, ``launch``, ``compact``,
   ``fetch``, ``verify``, ``repair`` (which nests its own steps) and
   ``carry``: the farm's IO thread.
+
+The spans of batch decode (``runtime/batch.py``, ``dsp/conditioner.py``),
+on the calling thread: ``batch.read``, ``batch.condition`` (``samples``)
+with the device conditioner's ``cond.upload``, ``cond.pass1``,
+``cond.verify`` (a ``cond.repair`` under it for each repaired ``block``),
+``cond.fetch`` and ``cond.edge_tracker`` under it, ``batch.pool`` and
+``batch.walk``.  Their host seconds also add to the caller's always-on
+counters (``add_counts``, ``timed``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -182,6 +192,24 @@ def record(name: str, start: float, end: float, parent: int | None = None,
         parent = st[-1].id if st else None
     _ring.append(Span(name, start, end, threading.current_thread().name,
                       parent, next(_ids), args or None))
+
+
+def add_counts(stats: dict | None, **counts) -> None:
+    """Add each count to what `stats`, a caller's always-on counters, holds
+    under its key; nothing where `stats` is None."""
+    if stats is not None:
+        for k, v in counts.items():
+            stats[k] = stats.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def timed(stats: dict | None, counter: str, name: str, **args):
+    """``with timed(stats, counter, name):`` is a span of `name` while spans
+    record, and adds the block's host seconds to ``stats[counter]``."""
+    t0 = time.perf_counter()
+    with span(name, **args):
+        yield
+    add_counts(stats, **{counter: time.perf_counter() - t0})
 
 
 def spans(t0: float | None = None, t1: float | None = None) -> list:
