@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ..native import binding
 from ..native.binding import Conditioned
 from .conditioner_kernel import condition_scan_tm
 from .cuda_channels import resolve_device
@@ -61,11 +62,15 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     rows' fetch, which waits for the kernel), ``verify_s`` (the boundary
     checks, without the repairs), ``repair_s`` (each repair whole, ending
     in its five ``.item()`` reads), ``fetch_s`` (the four arrays to the
-    host and the modulation depth) and ``edge_tracker_s``.  Each step is
+    host and the modulation depth) and ``edge_tracker_s`` (the carrier
+    edge tracker over the fetched filtered array); ``edge_native`` counts
+    the captures whose edges the native library's tracker computed (the
+    oracle's loop, bit for bit with ``_edge_tracker``, which runs only
+    where that library cannot load).  Each step is
     also a span of ``runtime/trace`` while spans record: ``cond.upload``,
     ``cond.pass1`` (``blocks``, ``span``), ``cond.verify`` with a
     ``cond.repair`` (``block``) under it for each repair, ``cond.fetch``
-    and ``cond.edge_tracker``."""
+    and ``cond.edge_tracker`` (``native`` 1 or 0)."""
     from ..runtime import trace
 
     if block < 1 or halo < 1:
@@ -157,12 +162,27 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
             mdepth = (env - clamped) / env
     t4 = time.perf_counter()
 
-    with trace.span("cond.edge_tracker"):
-        epeak, etime = _edge_tracker(filt, params)
+    native = binding.native_available()
+    with trace.span("cond.edge_tracker", native=int(native)):
+        epeak, etime = (_edge_track_native(filt, params) if native
+                        else _edge_tracker(filt, params))
     trace.add_counts(stats, samples=n, blocks=nb, repairs=repairs, upload_s=t1 - t0,
          pass1_s=t2 - t1, verify_s=t3 - t2 - repair_s, repair_s=repair_s,
-         fetch_s=t4 - t3, edge_tracker_s=time.perf_counter() - t4)
+         fetch_s=t4 - t3, edge_tracker_s=time.perf_counter() - t4,
+         edge_native=int(native))
     return Conditioned(value, env, filt, mdev, avg, mdepth, epeak, etime)
+
+
+def _edge_track_native(filt: np.ndarray, params):
+    """``_edge_tracker``'s peak and time from the native library's loop
+    (``nfclab_edge_track_ext``, the oracle's own), from a zero state at
+    base 0, as ``cuda_channels._conditioned`` runs it."""
+    n = len(filt)
+    bufs = {"filtered": np.ascontiguousarray(filt, dtype=np.float32),
+            "edge_peak": np.empty(n, np.float32),
+            "edge_time": np.empty(n, np.uint32)}
+    binding.edge_track_into(params, np.zeros(2, np.float64), bufs, 0, n, 0)
+    return bufs["edge_peak"], bufs["edge_time"]
 
 
 def _edge_tracker(filt: np.ndarray, params):

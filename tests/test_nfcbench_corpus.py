@@ -472,7 +472,7 @@ def test_benchmark_lists_the_cell_and_its_metrics():
 def test_condition_jax_bit_exact_on_the_ring_on_card():
     """On the card: condition_jax (cond_scan_kernel, halo, repairs) on
     every recording of the cell's ring equals the sequential oracle in
-    all eight arrays, bit for bit."""
+    all eight arrays, bit for bit, its edges from the native tracker."""
     import torch
 
     if not torch.cuda.is_available():
@@ -491,3 +491,4 @@ def test_condition_jax_bit_exact_on_the_ring_on_card():
             assert np.array_equal(_bits(getattr(got, name)),
                                   _bits(getattr(want, name))), (j, name)
         assert stats["samples"] == len(x)
+        assert stats["edge_native"] == 1

@@ -19,8 +19,13 @@
   block, and within nfclab's own CPU tolerance of nfclab's
   ``condition_jax`` (rtol 1e-4, atol 1e-6: XLA:CPU contracts FMAs in its
   scan);
-- the port's edge tracker, computed without nfclab's per-event loop,
-  bit-identical to that loop.
+- ``_edge_track_native`` (the native library's carrier edge tracker,
+  which ``condition_jax`` runs) with peak bits and times identical to the
+  copied per-event loop ``_edge_tracker`` on crafted filtered arrays
+  (``test_native_edge_tracker_equals_copied_loop``), and
+  ``condition_jax``'s ``edge_native`` counter: one a capture where the
+  native library loads, none (the loop, the same eight arrays) where it
+  does not.
 """
 
 import numpy as np
@@ -247,3 +252,97 @@ def test_condition_jax_needs_a_card_unless_asked_for_cpu(monkeypatch):
         condition_jax(x, _params())
     with pytest.raises(ValueError, match="at least 1"):
         condition_jax(x, _params(), halo=0, device="cpu")
+
+
+def _edge_case(name, lo, hi):
+    """A crafted filtered array for the edge tracker; `lo` and `hi` are the
+    low and high thresholds as float32."""
+    f = np.float32
+    if name == "field_off":
+        return np.zeros(4096, f)
+    if name == "at_low":
+        # |x| == low is no reset; just below it is
+        return np.array([hi * 2, lo, -lo, hi * 3, np.nextafter(lo, f(0)),
+                         hi * 1.5, -lo, 0.0, hi * 1.2], f)
+    if name == "at_high":
+        # |x| == high is no event; just above it is
+        return np.array([hi, -hi, np.nextafter(hi, f(1)), hi, -hi,
+                         -np.nextafter(hi, f(1)), lo * 0.5, hi, -hi], f)
+    if name == "equal_peaks":
+        # a strict > keeps the first time of equal peaks
+        return np.array([hi * 2, -hi * 2, hi * 2, hi * 1.5, hi * 2, -hi * 2],
+                        f)
+    if name == "low_resets_rise":
+        return np.array([hi * 1.1, hi * 1.5, hi * 3, (lo + hi) / 2, lo / 4,
+                         hi * 1.2, hi * 1.4, -hi * 1.3], f)
+    if name == "ends_in_peak":
+        x = np.zeros(2000, f)
+        x[1990:] = hi * np.linspace(1.1, 4.0, 10, dtype=f)
+        return x
+    if name == "length_1":
+        return np.array([-hi * 2], f)
+    if name == "all_high":
+        rng = np.random.default_rng(5)
+        x = hi * (1.0 + rng.random(3000)).astype(f)
+        return (x * rng.choice(np.array([-1, 1], f), 3000)).astype(f)
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "field_off", "at_low", "at_high", "equal_peaks", "low_resets_rise",
+    "ends_in_peak", "length_1", "all_high", "mixed_lanes"])
+def test_native_edge_tracker_equals_copied_loop(name):
+    """The native tracker condition_jax runs gives the copied per-event
+    loop's peak bits and times; on mixed_lanes (events at most samples)
+    also the C++ oracle's own edge_peak and edge_time."""
+    if not _native_ok():
+        pytest.skip("native library unavailable")
+    from nfclab_torch.dsp.conditioner import _edge_track_native, _edge_tracker
+    from nfclab_torch.native import condition_exact
+
+    p = _params()
+    lo = np.float32(p.signal_low_threshold)
+    hi = np.float32(p.signal_high_threshold)
+    want = None
+    if name == "mixed_lanes":
+        c = condition_exact(mixed_lanes(8, 8192, seed=31).reshape(-1), p)
+        filt, want = c.filtered, (c.edge_peak, c.edge_time)
+    else:
+        filt = _edge_case(name, lo, hi)
+    peak, etime = _edge_track_native(filt, p)
+    ref_peak, ref_time = _edge_tracker(filt, p)
+    assert peak.dtype == ref_peak.dtype == np.float32
+    assert etime.dtype == ref_time.dtype == np.uint32
+    assert np.array_equal(_bits(peak), _bits(ref_peak))
+    assert np.array_equal(etime, ref_time)
+    if want is not None:
+        assert np.array_equal(_bits(peak), _bits(want[0]))
+        assert np.array_equal(etime, want[1])
+        rect = np.abs(filt)
+        assert ((rect > hi) | (rect < lo)).mean() > 0.5
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_condition_jax_counts_native_edge_tracker(native, monkeypatch):
+    """edge_native counts the captures whose edges the native tracker
+    computed: one a call where the library loads, none where it does not
+    (the copied loop runs), and the eight arrays equal the oracle's."""
+    if not _native_ok():
+        pytest.skip("native library unavailable")
+    from nfclab_torch.dsp.conditioner import condition_jax
+    from nfclab_torch.native import binding, condition_exact
+
+    x = mixed_lanes(1, 20_000, seed=41)[0]
+    want = condition_exact(x, _params())
+    if not native:
+        monkeypatch.setattr(binding, "native_available", lambda: False)
+    stats = {}
+    for _ in range(2):
+        got = condition_jax(x, _params(), block=8192, halo=2048,
+                            device="cpu", stats=stats)
+        for name in ARRAYS:
+            a, b = getattr(got, name), getattr(want, name)
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert np.array_equal(_bits(a), _bits(b)), name
+    assert stats["edge_native"] == (2 if native else 0)
+    assert stats["blocks"] == 6
