@@ -51,7 +51,8 @@ Phases (any failure raises and the script exits non-zero):
 4. The mask path at full width: chained_batch_masks over 1024 captures of
    2,097,152 samples at 10 MS/s (one production window: 32 chunks of
    65536), the launch counts read around exactly that call and its time
-   split by step (StepTimes, each step ended by a device sync).
+   split by step (its ``stats``: host seconds with no added sync, so the
+   kernels count in compact, the step that waits for them).
 5. One capture of each synthetic template decoded to frames from the
    device triggers; they must equal the host-frontend frames and the
    bytes the synthesizer wrote.  Then the CLI with --frontend mask.
@@ -95,7 +96,7 @@ Phases (any failure raises and the script exits non-zero):
 10. The full-channel device frontend (every output of both fused kernels
    fetched densely): (a) fused_batch_all over 1024 captures x 131,072
    samples (the first two chunks of phase 4's lanes, so carried state
-   crosses one chunk boundary): wall time, samples/s, its StepTimes split
+   crosses one chunk boundary): wall time, samples/s, its ``stats`` split
    with the host edge tracker's seconds, peak memory and the launches read
    around exactly that call (2 + 2); the eight Conditioned arrays of 8
    lanes bit for bit against the C++ oracle, and lanes 0-1's nine box
@@ -835,10 +836,9 @@ def check_mask_boundary(dev, errs):
 
     from nfclab_torch.experiments import fused_v2 as v2
     from nfclab_torch.kernels import fused_v2 as kv
-    from nfclab_torch.kernels.fused import library
     from torch_synth import mask_boundary_out
 
-    got = kv.library_mask_geometry(library())
+    got = kv.library_mask_geometry()
     if got != (kv.mask_geometry(), kv.mask_smem()):
         raise AssertionError(f"v2_mask_kernel geometry {got} != the "
                              f"binding's {kv.mask_geometry()}, "
@@ -891,7 +891,7 @@ def check_ff_mask_geometry():
         lay = ff._layout(plan)
         for sel in ((True, False), (True, True), (False, True),
                     (False, False)):
-            got = kf.library_mask_geometry(lib, plan, lay, *sel)
+            got = kf.library_mask_geometry(plan, lay, *sel)
             want = kf.mask_geometry(plan, *sel)
             if got != want:
                 raise AssertionError(f"ff_mask_kernel geometry at {rate} Hz, "
@@ -1329,11 +1329,11 @@ def run_main_path(caps):
     torch.cuda.reset_peak_memory_stats()
     from nfclab_torch.dsp.conditioner_kernel import COND
 
-    steps = cc.StepTimes()
+    steps = {}
     for k in (*ff.KERNELS, COND):
         k.launches = 0
     t0 = time.perf_counter()
-    res = cc.chained_batch_masks(caps, RATE, device="cuda", timings=steps)
+    res = cc.chained_batch_masks(caps, RATE, device="cuda", stats=steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in ff.KERNELS}
@@ -1712,12 +1712,14 @@ def _hold_frames(got, want, what):
 def repair_steps(x, row):
     """One repair as the segmented engine runs it (run_chained_masks on
     one stream, a 16-segment window's segment of 2 chunks, from a carried
-    state at base = the fold modulus), by StepTimes step, the third of
-    three runs; and the scan kernel alone at that shape (CUDA events)."""
+    state at base = the fold modulus), its steps' host seconds (a
+    trace.Lap's counters) in the third of three runs; and the scan kernel
+    alone at that shape (CUDA events)."""
     import torch
 
     from nfclab_torch.dsp import cuda_channels as cc
     from nfclab_torch.dsp import fused_frontend as ff
+    from nfclab_torch.runtime import trace
 
     pt, _, mp = _params(RATE)
     plan = ff.kernel_plan(RATE)
@@ -1725,11 +1727,11 @@ def repair_steps(x, row):
     seg = x[None, : 2 * cc.CHAIN_CHUNK]
     state = torch.from_numpy(row).to(dev)
     for _ in range(3):
-        steps = cc.StepTimes()
-        lap = steps.start(dev)
+        steps = {}
         t0 = time.perf_counter()
         cc.run_chained_masks(seg, state, plan.fold_modulus, pt, mp,
-                             want_carry=True, lap=lap)
+                             want_carry=True,
+                             lap=trace.Lap(steps, cc.LAP_COUNTERS))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     res = dict(steps, unattributed=wall - sum(steps.values()), wall=wall)
@@ -1880,11 +1882,11 @@ def run_full_path(caps2):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    steps = cc.StepTimes()
+    steps = {}
     for k in ff.KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    res = cc.fused_batch_all(caps2, RATE, device="cuda", timings=steps)
+    res = cc.fused_batch_all(caps2, RATE, device="cuda", stats=steps)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k.name: k.launches for k in ff.KERNELS}
@@ -1896,7 +1898,7 @@ def run_full_path(caps2):
     out = {"captures": len(caps2), "samples": len(caps2[0]),
            "wall_s": dt, "samples_per_s": n / dt,
            "steps_s": dict(steps, unattributed=dt - sum(steps.values())),
-           "edge_tracker_s": steps["edge_tracker"],
+           "edge_tracker_s": steps["edge_tracker_s"],
            "max_memory_allocated": peak, "launches": launches}
     log(f"full path: fused_batch_all {len(caps2)} x {len(caps2[0])}: "
         f"{json.dumps(out)}")
@@ -4090,7 +4092,7 @@ def main(argv=None) -> int:
         raise AssertionError("main path returned a wrong capture length")
     cap = max(4096, WINDOW // 16)
     counts = [len(r["detect_idx"]) for r in res]
-    log("main path steps (s, each ended by a device sync): "
+    log("main path steps (host s, no added sync): "
         + json.dumps(dict(steps, unattributed=dt - sum(steps.values()))))
     log(f"compaction cap {cap}: {sum(c > cap for c in counts)} of "
         f"{len(counts)} streams over it, most triggers {max(counts)}")

@@ -24,20 +24,23 @@ the result is bit-identical to the sequential C++ oracle.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..native import binding
 from ..native.binding import Conditioned
+from ..runtime import trace
 from .conditioner_kernel import condition_scan_tm
-from .cuda_channels import resolve_device
+from .cuda_channels import _edge_track_native, resolve_device
 from .frontend import _params_tuple
 
 _FINAL = ("env", "mdev", "avg", "filt")  # the outputs Conditioned keeps
 _STATE = ("env", "w1", "mdev", "avg", "pulse")  # a block's carried state
 _NAMES = ("env", "w1", "mdev", "avg", "filt", "pulse")
+# stats counters of condition_jax's steps (trace.Lap)
+_COUNTERS = {"cond.upload": "upload_s", "cond.pass1": "pass1_s",
+             "cond.verify": "verify_s", "cond.repair": "repair_s",
+             "cond.fetch": "fetch_s", "cond.edge_tracker": "edge_tracker_s"}
 
 
 def condition_jax(value: np.ndarray, params, block: int = 65536,
@@ -66,13 +69,11 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     edge tracker over the fetched filtered array); ``edge_native`` counts
     the captures whose edges the native library's tracker computed (the
     oracle's loop, bit for bit with ``_edge_tracker``, which runs only
-    where that library cannot load).  Each step is
-    also a span of ``runtime/trace`` while spans record: ``cond.upload``,
+    where that library cannot load).  Each step is a step of one
+    ``trace.Lap``, so also a span while spans record: ``cond.upload``,
     ``cond.pass1`` (``blocks``, ``span``), ``cond.verify`` with a
     ``cond.repair`` (``block``) under it for each repair, ``cond.fetch``
     and ``cond.edge_tracker`` (``native`` 1 or 0)."""
-    from ..runtime import trace
-
     if block < 1 or halo < 1:
         raise ValueError("block and halo must be at least 1")
     dev = resolve_device(device)
@@ -85,17 +86,16 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
     starts = np.arange(nb) * block
     scan_starts = np.maximum(starts - halo, 0)
     span = block + halo
-    t0 = time.perf_counter()
-    with trace.span("cond.upload"):
+    lap = trace.Lap(stats, _COUNTERS)
+    with lap.step("cond.upload"):
         pad_val = torch.from_numpy(
             np.pad(value, (0, padded + halo - n), mode="edge")).to(dev)
         # pass 1 works time-major: block b is stream b of a [span, nb] batch
         first = torch.from_numpy(scan_starts).to(dev)
         blocks = pad_val[torch.arange(span, device=dev)[:, None]
                          + first[None, :]]
-    t1 = time.perf_counter()
 
-    with trace.span("cond.pass1", blocks=nb, span=span):
+    with lap.step("cond.pass1", blocks=nb, span=span):
         # canonical warm-up init; block 0 gets the true initial state
         first_v = blocks[0]
         env0 = first_v.clone()
@@ -123,18 +123,15 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
         before = (drop - 1).clamp(min=0)[None, :]
         bnd = {k: outs[k].gather(0, before)[0].cpu().numpy() for k in _STATE}
         del outs, rows
-    t2 = time.perf_counter()
 
     repairs = 0
-    repair_s = 0.0
-    with trace.span("cond.verify"):
+    with lap.step("cond.verify"):
         for b in range(1, nb):
             # bit equality: equal bits give equal futures
             if all(bnd[k][b : b + 1].view(np.int32)
                    == end[k][b - 1 : b].view(np.int32) for k in _STATE):
                 continue
-            t_r = time.perf_counter()
-            with trace.span("cond.repair", block=b):
+            with lap.step("cond.repair", block=b):
                 s = int(starts[b])
                 init = [torch.from_numpy(end[k][b - 1 : b].copy()).to(dev)
                         for k in _STATE[:4]]
@@ -147,11 +144,9 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
                     final[k][s : s + block] = rep[k][:, 0]
                 for k in _STATE:
                     end[k][b] = rep[k][-1, 0].item()
-            repair_s += time.perf_counter() - t_r
             repairs += 1
-    t3 = time.perf_counter()
 
-    with trace.span("cond.fetch"):
+    with lap.step("cond.fetch"):
         env, filt, mdev, avg = (final[k][:n].cpu().numpy()
                                 for k in ("env", "filt", "mdev", "avg"))
 
@@ -160,29 +155,14 @@ def condition_jax(value: np.ndarray, params, block: int = 65536,
         with np.errstate(invalid="ignore", divide="ignore"):
             clamped = np.maximum(np.float32(0.0), np.minimum(value, env))
             mdepth = (env - clamped) / env
-    t4 = time.perf_counter()
 
     native = binding.native_available()
-    with trace.span("cond.edge_tracker", native=int(native)):
+    with lap.step("cond.edge_tracker", native=int(native)):
         epeak, etime = (_edge_track_native(filt, params) if native
                         else _edge_tracker(filt, params))
-    trace.add_counts(stats, samples=n, blocks=nb, repairs=repairs, upload_s=t1 - t0,
-         pass1_s=t2 - t1, verify_s=t3 - t2 - repair_s, repair_s=repair_s,
-         fetch_s=t4 - t3, edge_tracker_s=time.perf_counter() - t4,
-         edge_native=int(native))
+    trace.add_counts(stats, samples=n, blocks=nb, repairs=repairs,
+                     edge_native=int(native))
     return Conditioned(value, env, filt, mdev, avg, mdepth, epeak, etime)
-
-
-def _edge_track_native(filt: np.ndarray, params):
-    """``_edge_tracker``'s peak and time from the native library's loop
-    (``nfclab_edge_track_ext``, the oracle's own), from a zero state at
-    base 0, as ``cuda_channels._conditioned`` runs it."""
-    n = len(filt)
-    bufs = {"filtered": np.ascontiguousarray(filt, dtype=np.float32),
-            "edge_peak": np.empty(n, np.float32),
-            "edge_time": np.empty(n, np.uint32)}
-    binding.edge_track_into(params, np.zeros(2, np.float64), bufs, 0, n, 0)
-    return bufs["edge_peak"], bufs["edge_time"]
 
 
 def _edge_tracker(filt: np.ndarray, params):

@@ -29,13 +29,11 @@ raise.
 
 from __future__ import annotations
 
-import contextlib
-import time
-
 import numpy as np
 import torch
 
 from ..core.params import SignalParams, nfca_bitrates
+from ..runtime import trace
 
 # body / halo sizes of the overlap-save block layout; H + L must be a
 # multiple of the kernels' TILE (128)
@@ -222,98 +220,20 @@ def _compact(mm: torch.Tensor, cap: int):
     return idx, bits, cnt
 
 
-def _no_lap(step: str) -> None:
-    pass
-
-
-class StepTimes(dict):
-    """Seconds spent in each step of chained_batch_masks or
-    _run_batch_chained (and fused_batch_all), summed over their windows or
-    chunks (pass one as ``timings``).  Each step is ended by a device
-    sync, so a kernel's time lands in the step that launched it; without
-    a StepTimes the engine adds no sync."""
-
-    def start(self, dev: torch.device):
-        self._dev = dev
-        self._t = time.perf_counter()
-        return self.lap
-
-    def lap(self, step: str) -> None:
-        if self._dev.type == "cuda":
-            torch.cuda.synchronize(self._dev)
-        now = time.perf_counter()
-        self[step] = self.get(step, 0.0) + (now - self._t)
-        self._t = now
-
-
-class StepSums:
-    """The live farm's lap, always on: each step of the mask engines adds
-    its host seconds to a counter of `stats` with no device sync, and is a
-    span (runtime/trace) while spans record.  The steps tile the pass from
-    `t0`: a step counts from the previous step's end to its own, so the
-    kernels enqueued without a sync count in the step that waits for
-    them (``compact``: its torch.nonzero blocks until the window's kernels
-    end).  Seconds by counter: ``upload_s`` (samples, halo tail, carried
-    state), ``launch_s`` (enqueueing the chunk loop), ``compact_s``,
-    ``fetch_s`` (counts, trigger prefixes, overflow rows, carry rows,
-    assembly), ``verify_s`` (the segment boundary check) and ``repair_s``
-    (each repair whole: its own steps are spans under it, counted there
-    alone)."""
-
-    COUNTERS = {"upload": "upload_s", "chunks": "launch_s",
-                "compact": "compact_s", "fetch": "fetch_s",
-                "overflow_rows": "fetch_s", "assemble": "fetch_s",
-                "carry": "fetch_s", "verify": "verify_s",
-                "repair": "repair_s"}
-    SPANS = {"chunks": "launch", "overflow_rows": "fetch",
-             "assemble": "fetch"}
-
-    def __init__(self, stats: dict | None, t0: float, seq: int | None = None):
-        from ..runtime import trace
-
-        self.stats = stats    # None: spans only (a repair's nested steps)
-        self.seq = seq
-        self._t = t0
-        self._open = None
-        self._trace = trace
-
-    def begin(self, step: str, **args) -> None:
-        if self._trace.active():
-            self._open = self._trace.span(self.SPANS.get(step, step),
-                                          seq=self.seq, **args).__enter__()
-
-    def __call__(self, step: str) -> None:
-        now = time.perf_counter()
-        if self.stats is not None:
-            self.stats[self.COUNTERS[step]] += now - self._t
-        self._t = now
-        if self._open is not None:
-            self._open.__exit__(None, None, None)
-            self._open = None
-
-    def nested(self):
-        """The lap of an engine call inside this step (a repair's serial
-        chain): its steps are spans while spans record, counted in the
-        step alone."""
-        if not self._trace.active():
-            return _no_lap
-        return StepSums(None, time.perf_counter(), self.seq)
-
-
-@contextlib.contextmanager
-def _step(lap, step: str, **args):
-    """One step of an engine: the lap's ``begin`` where it has one (a
-    StepSums opens the step's span), the lap at its end."""
-    begin = getattr(lap, "begin", None)
-    if begin is not None:
-        begin(step, **args)
-    yield
-    lap(step)
-
-
-def _nested(lap):
-    nested = getattr(lap, "nested", None)
-    return _no_lap if nested is None else nested()
+# counters of the engines' steps (trace.Lap), in the live farm's stats and
+# in the offline engines' ``stats``: the kernels queued with no sync count
+# in the step that waits for them (``compact``: torch.nonzero waits for the
+# window's kernels; ``fetch`` where nothing is compacted).  ``stage``: the
+# engine's set-up and the host blocks' staging; ``upload``: samples, halo
+# tail, carried state; ``launch``: the chunk loop; ``fetch``: counts,
+# trigger prefixes, overflow rows, the outputs' assembly; ``carry``: the
+# carried state rows; ``verify``: the segment boundary check; ``repair``:
+# each repair whole (its own steps are spans under it, counted there
+# alone); ``edge_tracker``: the host carrier-edge tracker.
+LAP_COUNTERS = {"stage": "stage_s", "upload": "upload_s",
+                "launch": "launch_s", "compact": "compact_s",
+                "fetch": "fetch_s", "carry": "fetch_s", "verify": "verify_s",
+                "repair": "repair_s", "edge_tracker": "edge_tracker_s"}
 
 
 def _stage(caps: list, lo: int, width: int, live: int) -> np.ndarray:
@@ -348,36 +268,33 @@ def _run_chunks(x: torch.Tensor, st: torch.Tensor, base0: int, pt, mp,
     return mm, st, pen
 
 
-def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int, lap=_no_lap):
+def _fetch(mm: torch.Tensor, idx, bits, cnt, cap: int):
     """Per-row (rel_idx i64, bits u8) on the host.  The count vector comes
     first (it also waits for the window), then only what each row needs:
     the compacted prefix for sparse rows, and the dense mask rows of the
     rows that overflow the cap, gathered on the device and moved in one
     transfer."""
     n_live = mm.shape[0]
-    with _step(lap, "fetch"):
-        cnt_h = cnt.cpu().numpy()
-        over = np.flatnonzero(cnt_h > cap)
-        idx_h = bits_h = None
-        if len(over) < n_live:
-            width = int(min(cap, cnt_h.max()))
-            idx_h = idx[:, :width].cpu().numpy()
-            bits_h = bits[:, :width].cpu().numpy()
-    with _step(lap, "overflow_rows"):
-        dense = {}
-        if len(over):
-            rows = mm[torch.from_numpy(over).to(mm.device)].cpu().numpy()
-            for i, row in zip(over.tolist(), rows):
-                rel = np.flatnonzero(row).astype(np.int64)
-                dense[i] = (rel, row[rel])
-    with _step(lap, "assemble"):
-        out = []
-        for i in range(n_live):
-            if i in dense:
-                out.append(dense[i])
-            else:
-                c = int(cnt_h[i])
-                out.append((idx_h[i][:c].astype(np.int64), bits_h[i][:c]))
+    cnt_h = cnt.cpu().numpy()
+    over = np.flatnonzero(cnt_h > cap)
+    idx_h = bits_h = None
+    if len(over) < n_live:
+        width = int(min(cap, cnt_h.max()))
+        idx_h = idx[:, :width].cpu().numpy()
+        bits_h = bits[:, :width].cpu().numpy()
+    dense = {}
+    if len(over):
+        rows = mm[torch.from_numpy(over).to(mm.device)].cpu().numpy()
+        for i, row in zip(over.tolist(), rows):
+            rel = np.flatnonzero(row).astype(np.int64)
+            dense[i] = (rel, row[rel])
+    out = []
+    for i in range(n_live):
+        if i in dense:
+            out.append(dense[i])
+        else:
+            c = int(cnt_h[i])
+            out.append((idx_h[i][:c].astype(np.int64), bits_h[i][:c]))
     return out
 
 
@@ -397,8 +314,8 @@ def _expand_state(rows: np.ndarray, device) -> torch.Tensor:
 
 def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
                       pt, mp, cap_div: int = 16, chunk: int | None = None,
-                      sample_rate: int = 10_000_000, lap=_no_lap,
-                      want_carry: bool = False):
+                      sample_rate: int = 10_000_000,
+                      lap: trace.Lap | None = None, want_carry: bool = False):
     """One chained-K window + compacted fetch.
 
     blocks: [n_live, T] f32 host samples, T % chunk == 0 (chunk defaults
@@ -406,8 +323,9 @@ def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
     streams of `state` ([B, nstate] on the device to run on; the other
     streams are fed zeros).  Returns (per-stream list of (rel_idx i64,
     bits u8), state_out).  Streams whose trigger count overflows the
-    compaction cap take their dense mask row instead.  `lap` ends each
-    step (see StepTimes, StepSums).
+    compaction cap take their dense mask row instead.  Its steps go
+    through `lap` (trace.Lap; LAP_COUNTERS): upload, launch, compact,
+    fetch and, with want_carry, carry.
 
     want_carry=True additionally returns {"pen", "end"}: host
     [n_live, nstate] state rows one chunk before the window's end and at
@@ -426,17 +344,20 @@ def run_chained_masks(blocks: np.ndarray, state: torch.Tensor, base0: int,
         raise ValueError(f"{n_live} rows for a state of {state.shape[0]} "
                          "streams")
     plan = kernel_plan(sample_rate)
-    with _step(lap, "upload"):
+    if lap is None:
+        lap = trace.Lap()
+    with lap.step("upload"):
         x = upload_samples(blocks, dev)
-    with _step(lap, "chunks"):
+    with lap.step("launch"):
         mm, st, pen = _run_chunks(x, state.t().contiguous(), base0, pt, mp,
                                   plan, chunk)
         del x
-    with _step(lap, "compact"):
+    with lap.step("compact"):
         idx, bits, cnt = _compact(mm, cap)
-    per = _fetch(mm, idx, bits, cnt, cap, lap)
+    with lap.step("fetch"):
+        per = _fetch(mm, idx, bits, cnt, cap)
     if want_carry:
-        with _step(lap, "carry"):
+        with lap.step("carry"):
             carry = {"pen": _state_rows(pen, n=n_live),
                      "end": _state_rows(st, n=n_live)}
         return per, st.t().contiguous(), carry
@@ -491,7 +412,8 @@ _NVER = 5  # verified carry rows: env, w1, mdev, avg, pulse-count
 
 def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
                      carry_in: torch.Tensor, pt, mp, plan, S: int, B: int,
-                     chunk: int, base: int, cap: int, lap=_no_lap) -> dict:
+                     chunk: int, base: int, cap: int,
+                     lap: trace.Lap) -> dict:
     """The device stage of run_segmented_masks: x [n_live, S*B*chunk],
     tail [n_live, chunk] and carry_in [n_live, nstate] on the device ->
     {"mm": [n_lanes, B*chunk] u8, "idx"/"bits"/"cnt" (its compaction),
@@ -503,8 +425,8 @@ def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
     Lane (i, s) = row i*S + s covers body samples [s*B*chunk,
     (s+1)*B*chunk) of stream i after one halo chunk; `base` is the rate's
     fold modulus (all segment offsets are multiples of it, so one base
-    serves every lane and chunk with identical ring phases).  `lap` ends
-    the chunk loop and the compaction."""
+    serves every lane and chunk with identical ring phases).  The chunk
+    loop and the compaction are steps of `lap`."""
     from .fused_frontend import run_chunk
 
     n_live = x.shape[0]
@@ -529,7 +451,7 @@ def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
     xc = torch.empty(chunk, n_lanes, dtype=torch.float32, device=dev)
     mm = torch.empty(n_lanes, B * chunk, dtype=torch.uint8, device=dev)
     vh = pen = None
-    with _step(lap, "chunks"):
+    with lap.step("launch"):
         for k in range(B + 1):
             src = prev if k == 0 else x4[:, :, k - 1, :]
             xc.view(chunk, n_live, S).copy_(src.permute(2, 0, 1))
@@ -541,7 +463,7 @@ def _segmented_masks(x: torch.Tensor, tail: torch.Tensor,
                 vh = st[:_NVER].t().contiguous()
             else:
                 mm[:, (k - 1) * chunk : k * chunk] = outs["detect_mask"].t()
-    with _step(lap, "compact"):
+    with lap.step("compact"):
         idx, bits, cnt = _compact(mm, cap)
     return {"mm": mm, "idx": idx, "bits": bits, "cnt": cnt, "vh": vh,
             "ve": st[:_NVER].t().contiguous(), "pen": pen[:, S - 1 :: S],
@@ -552,7 +474,8 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
                         segments: int, cap_div: int = 16,
                         chunk: int | None = None,
                         sample_rate: int = 10_000_000,
-                        k_bucket: int = 32, device="cuda", lap=_no_lap):
+                        k_bucket: int = 32, device="cuda",
+                        lap: trace.Lap | None = None):
     """Segment-parallel chained masks over one window (see the scheme note
     above).  blocks: [n_live, T] host samples, T = K*chunk, segments | K
     (chunk defaults to the module's CHAIN_CHUNK, read at call time, and
@@ -563,9 +486,9 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     "end": same at prev end, "tail": [n_live, chunk] prev last chunk}, on
     the host.  Runs on `device` (``cpu``: the kernels' plain versions).
     Returns (per-stream (rel i64, bits u8) window-relative, new carry,
-    {"repaired_streams", "repair_chunks"}).  `lap` ends each step, as in
-    run_chained_masks; each repair is one step, ``repair``, whose serial
-    chain takes the lap's nested lap (StepSums.nested)."""
+    {"repaired_streams", "repair_chunks"}).  Its steps go through `lap`,
+    as in run_chained_masks, with verify; each repair is one step,
+    ``repair``, whose serial chain steps through ``lap.nested()``."""
     from .fused_frontend import kernel_plan
 
     if chunk is None:
@@ -586,21 +509,23 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     assert S >= 2 and K % S == 0
     B = K // S
     cap = max(4096, (B * chunk) // cap_div)
-    with _step(lap, "upload"):
+    if lap is None:
+        lap = trace.Lap()
+    with lap.step("upload"):
         x = upload_samples(blocks, dev)
         tail = upload_samples(np.ascontiguousarray(carry["tail"]), dev)
         pen_in = _expand_state(carry["pen"], dev)
     d = _segmented_masks(x, tail, pen_in, pt, mp, plan, S, B, chunk, base,
                          cap, lap)
     del x, tail, pen_in
-    with _step(lap, "fetch"):
+    with lap.step("fetch"):
         vh, ve = d["vh"].cpu().numpy(), d["ve"].cpu().numpy()
 
     # verify EVERY pairwise boundary (NaN compares unequal, which
     # correctly forces a repair): ok[i][s] means lane (i, s)'s post-halo
     # carry equals lane (i, s-1)'s end carry, i.e. segment s is exact
     # WHENEVER its predecessor is
-    with _step(lap, "verify"):
+    with lap.step("verify"):
         boundary_ok = np.ones((n_live, S), bool)
         for i in range(n_live):
             for s in range(1, S):
@@ -615,7 +540,8 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     # every lane's triggers (lanes inside a repair range get overwritten,
     # but fetching them is cheaper than a second round trip when the
     # repair early-stops and re-accepts them)
-    per_lane = _fetch(d["mm"], d["idx"], d["bits"], d["cnt"], cap, lap)
+    with lap.step("fetch"):
+        per_lane = _fetch(d["mm"], d["idx"], d["bits"], d["cnt"], cap)
 
     # repair with convergence stop (the conditioner's scheme): re-run the
     # first unverified segment exactly from the accepted predecessor's
@@ -649,11 +575,11 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
                 lo_c = s * B
                 kk = take * B
                 seg = blocks[i : i + 1, lo_c * chunk : (lo_c + kk) * chunk]
-                with _step(lap, "repair", stream=i, chunks=kk):
+                with lap.step("repair", stream=i, chunks=kk):
                     per, state_dev, c2 = run_chained_masks(
                         seg, state_dev, base, pt, mp, cap_div=cap_div,
                         chunk=chunk, sample_rate=sample_rate,
-                        want_carry=True, lap=_nested(lap),
+                        want_carry=True, lap=lap.nested(),
                     )
                     rel, bb = per[0]
                     for ss in range(s, s + take):
@@ -677,10 +603,10 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
             while j < len(bad) and bad[j] <= rejoined:
                 j += 1
 
-    with _step(lap, "carry"):
+    with lap.step("carry"):
         new_pen = _state_rows(d["pen"])
         new_end = _state_rows(d["end"])
-    with _step(lap, "assemble"):
+    with lap.step("fetch"):
         out = []
         for i in range(n_live):
             parts_r, parts_b = [], []
@@ -710,7 +636,7 @@ def chained_batch_masks(
     thresholds=None,
     k_chunks: int = 32,
     device="cuda",
-    timings: StepTimes | None = None,
+    stats: dict | None = None,
 ) -> list[dict]:
     """SPARSE detect triggers for many captures via the chained
     exact-state engine: captures ride the kernels as independent streams
@@ -720,15 +646,17 @@ def chained_batch_masks(
 
     Chained conditioning is the EXACT streaming envelope, so the mask's
     power gate is sound; the SD thresholds keep MASK_ONLY_MARGIN for the
-    kernel-f32 vs host-f64 box roundoff.  `timings` (a StepTimes) collects
-    the seconds of each step."""
+    kernel-f32 vs host-f64 box roundoff.  ``stats``, when given, adds the
+    host seconds of each step under LAP_COUNTERS' names (``stage_s``,
+    ``upload_s``, ``launch_s``, ``compact_s``, ``fetch_s``), with no
+    device sync the steps do not already make."""
     from .frontend import _params_tuple
     from .fused_frontend import kernel_plan
 
     dev = resolve_device(device)
-    lap = _no_lap if timings is None else timings.start(dev)
     if not captures:
         return []
+    lap = trace.Lap(stats, LAP_COUNTERS)
     # captures sorted by length (desc) so finished ones form a suffix:
     # each window uploads only the LIVE prefix
     order = sorted(range(len(captures)), key=lambda i: -len(captures[i]))
@@ -743,7 +671,6 @@ def chained_batch_masks(
     mod = kernel_plan(sample_rate).fold_modulus
     idx_parts: list[list] = [[] for _ in caps]
     bit_parts: list[list] = [[] for _ in caps]
-    lap("setup")
     lo = 0
     while lo < t_max:
         # window width: k_chunks full chunks, the final window bucketed to
@@ -757,8 +684,8 @@ def chained_batch_masks(
             k = min(k2, k_chunks)
         width = k * CHAIN_CHUNK
         live = sum(1 for c in caps if len(c) > lo)
-        batch = _stage(caps, lo, width, live)
-        lap("stage")
+        with lap.step("stage"):
+            batch = _stage(caps, lo, width, live)
         # int32-safe clock fold: every ring size divides the plan's fold
         # modulus and lo is a multiple of CHAIN_CHUNK (>= any ring size),
         # so the folded base keeps every ring phase (and mod >= 512 > etu
@@ -769,29 +696,29 @@ def chained_batch_masks(
                                        chunk=CHAIN_CHUNK,
                                        sample_rate=sample_rate, lap=lap)
         del batch
-        for i in range(live):
-            rel, bits = per[i]
-            keep = rel + lo < len(caps[i])
-            idx_parts[i].append(rel[keep] + lo)
-            bit_parts[i].append(bits[keep])
-        lap("assemble")
+        with lap.step("fetch"):
+            for i in range(live):
+                rel, bits = per[i]
+                keep = rel + lo < len(caps[i])
+                idx_parts[i].append(rel[keep] + lo)
+                bit_parts[i].append(bits[keep])
         lo += width
-    sorted_out = [
-        {
-            "detect_idx": (
-                np.concatenate(ip) if ip else np.empty(0, np.int64)
-            ),
-            "detect_bits": (
-                np.concatenate(bp) if bp else np.empty(0, np.uint8)
-            ),
-            "n": len(c),
-        }
-        for ip, bp, c in zip(idx_parts, bit_parts, caps)
-    ]
-    out: list = [None] * len(captures)
-    for pos, i in enumerate(order):
-        out[i] = sorted_out[pos]
-    lap("assemble")
+    with lap.step("fetch"):
+        sorted_out = [
+            {
+                "detect_idx": (
+                    np.concatenate(ip) if ip else np.empty(0, np.int64)
+                ),
+                "detect_bits": (
+                    np.concatenate(bp) if bp else np.empty(0, np.uint8)
+                ),
+                "n": len(c),
+            }
+            for ip, bp, c in zip(idx_parts, bit_parts, caps)
+        ]
+        out: list = [None] * len(captures)
+        for pos, i in enumerate(order):
+            out[i] = sorted_out[pos]
     return out
 
 
@@ -974,7 +901,7 @@ def _run_batch_chained(
     thresholds=None,
     chunk: int = 1 << 16,
     device="cuda",
-    timings: StepTimes | None = None,
+    stats: dict | None = None,
 ) -> list[dict[str, np.ndarray]]:
     """EXACT device frontend: captures ride the kernels as independent
     streams through chained chunks with carried state -- outputs
@@ -992,9 +919,9 @@ def _run_batch_chained(
     with the live streams' [nstate, live] state carried at base = the
     chunk's clock; the kernels take any stream count, so nothing is
     padded.  Each chunk's outputs cross to the host in one transfer
-    (_fetch_dense); the results come back in caller order.  `timings` (a
-    StepTimes) collects the seconds of each step: setup, stage, upload,
-    chunks, fetch, assemble."""
+    (_fetch_dense); the results come back in caller order.  ``stats``, as
+    in chained_batch_masks, adds ``stage_s``, ``upload_s``, ``launch_s``
+    and ``fetch_s`` (the fetch waits for the chunk's kernels)."""
     from . import fused_frontend as ff
     from ..core.thresholds import DecoderThresholds
     from .frontend import _params_tuple
@@ -1002,9 +929,9 @@ def _run_batch_chained(
     if chunk % ff.TILE:
         raise ValueError(f"chunk must be a multiple of {ff.TILE}")
     dev = resolve_device(device)
-    lap = _no_lap if timings is None else timings.start(dev)
     if not captures:
         return []
+    lap = trace.Lap(stats, LAP_COUNTERS)
     order = sorted(range(len(captures)), key=lambda i: -len(captures[i]))
     caps = [np.ascontiguousarray(captures[i], np.float32) for i in order]
     lens = [len(c) for c in caps]
@@ -1034,28 +961,26 @@ def _run_batch_chained(
     ]
     state = torch.zeros(plan.nstate, len(caps), dtype=torch.float32,
                         device=dev)
-    lap("setup")
     for k in range(n_chunks):
         lo = k * chunk
         live = sum(1 for n in lens if n > lo)
-        block = _stage(caps, lo, chunk, live)
-        lap("stage")
-        x = upload_samples(block, dev).t().contiguous()
-        del block
-        lap("upload")
-        res, state = ff.run_chunk(x, state[:, :live].contiguous(), lo, pt,
-                                  mask_params, plan, sel)
-        del x
-        lap("chunks")
-        fetched = _fetch_dense(res, sel, live)
-        del res
-        lap("fetch")
-        for i in range(live):
-            hi = min(lens[i], lo + chunk)
-            for name in sel:
-                outs[i][name][lo:hi] = fetched[name][i, : hi - lo]
-        del fetched
-        lap("assemble")
+        with lap.step("stage"):
+            block = _stage(caps, lo, chunk, live)
+        with lap.step("upload"):
+            x = upload_samples(block, dev).t().contiguous()
+            del block
+        with lap.step("launch"):
+            res, state = ff.run_chunk(x, state[:, :live].contiguous(), lo,
+                                      pt, mask_params, plan, sel)
+            del x
+        with lap.step("fetch"):
+            fetched = _fetch_dense(res, sel, live)
+            del res
+            for i in range(live):
+                hi = min(lens[i], lo + chunk)
+                for name in sel:
+                    outs[i][name][lo:hi] = fetched[name][i, : hi - lo]
+            del fetched
 
     inv = [0] * len(captures)
     for pos, i in enumerate(order):
@@ -1063,25 +988,32 @@ def _run_batch_chained(
     return [outs[inv[i]] for i in range(len(captures))]
 
 
+def _edge_track_native(filt: np.ndarray, params):
+    """The carrier-edge tracker's peak and time (NfcTech.cpp:77-92) over a
+    capture's filtered array, from the native library's loop
+    (``nfclab_edge_track_ext``, the oracle's own) from a zero state at
+    base 0."""
+    from ..native.binding import edge_track_into
+
+    n = len(filt)
+    bufs = {"filtered": np.ascontiguousarray(filt, dtype=np.float32),
+            "edge_peak": np.empty(n, np.float32),
+            "edge_time": np.empty(n, np.uint32)}
+    edge_track_into(params, np.zeros(2, np.float64), bufs, 0, n, 0)
+    return bufs["edge_peak"], bufs["edge_time"]
+
+
 def _conditioned(samples: np.ndarray, arrs: dict, params):
     """Conditioned of one capture from the kernels' conditioning outputs;
     the carrier-edge tracker (which the kernels do not emit) runs on the
-    host from a zero state at base 0."""
-    from ..native.binding import Conditioned, edge_track_into
+    host (``_edge_track_native``)."""
+    from ..native.binding import Conditioned
 
-    n = len(samples)
-    bufs = {
-        "value": np.ascontiguousarray(samples, np.float32),
-        **{k: arrs[k] for k in _COND_FETCH},
-        "edge_peak": np.empty(n, np.float32),
-        "edge_time": np.empty(n, np.uint32),
-    }
-    state = np.zeros(2, np.float64)
-    edge_track_into(params, state, bufs, 0, n, 0)
+    peak, etime = _edge_track_native(arrs["filtered"], params)
     return Conditioned(
-        bufs["value"], bufs["envelope"], bufs["filtered"], bufs["deviation"],
-        bufs["average"], bufs["mod_depth"], bufs["edge_peak"],
-        bufs["edge_time"],
+        np.ascontiguousarray(samples, np.float32), arrs["envelope"],
+        arrs["filtered"], arrs["deviation"], arrs["average"],
+        arrs["mod_depth"], peak, etime,
     )
 
 
@@ -1201,7 +1133,7 @@ def fused_batch_all(
     H: int = DEFAULT_H,
     thresholds=None,
     device="cuda",
-    timings: StepTimes | None = None,
+    stats: dict | None = None,
 ) -> list[tuple]:
     """Full device frontend for MANY captures; returns one
     (Conditioned, channels) pair per capture.  Runs the EXACT
@@ -1209,23 +1141,21 @@ def fused_batch_all(
     demands it -- with captures stacked as kernel streams, one launch of
     each kernel and one fetch per chunk.  Only the carrier-edge peak
     tracker (not emitted by the kernels) runs per capture on the host;
-    `timings` (a StepTimes) gets its seconds as ``edge_tracker`` beside
-    the chained runner's steps."""
+    ``stats`` adds its seconds as ``edge_tracker_s`` beside the chained
+    runner's steps."""
     arr_sets = _run_batch_chained(
         captures, sample_rate, power_level_threshold,
         fetch_names(sample_rate) + _COND_FETCH, thresholds=thresholds,
-        device=device, timings=timings,
+        device=device, stats=stats,
     )
     params = SignalParams(
         sample_rate, power_level_threshold=power_level_threshold
     )
     names = fetch_names(sample_rate)
-    outs = [(_conditioned(samples, arrs, params),
-             {k: arrs[k] for k in names})
-            for samples, arrs in zip(captures, arr_sets)]
-    if timings is not None and captures:
-        timings.lap("edge_tracker")
-    return outs
+    with trace.Lap(stats, LAP_COUNTERS).step("edge_tracker"):
+        return [(_conditioned(samples, arrs, params),
+                 {k: arrs[k] for k in names})
+                for samples, arrs in zip(captures, arr_sets)]
 
 
 def idx_key_map(sample_rate: int, power_level_threshold: float,

@@ -49,47 +49,45 @@ def nvcc_path() -> str:
     return found
 
 
-def _stamp(src_dir: Path) -> str:
-    """Hash of the flags and of every file under src_dir (headers
+def _stamp() -> str:
+    """Hash of the flags and of every file under SRC_DIR (headers
     included, so a change to a shared header rebuilds the library)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(p for p in src_dir.rglob("*") if p.is_file()):
-        h.update(str(path.relative_to(src_dir)).encode())
+    for path in sorted(p for p in SRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(SRC_DIR)).encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def lib_path(build_dir: Path = BUILD_DIR) -> Path:
-    return build_dir / LIB_NAME
+def lib_path() -> Path:
+    return BUILD_DIR / LIB_NAME
 
 
-def log_path(build_dir: Path = BUILD_DIR) -> Path:
-    return build_dir / "nvcc.log"
+def log_path() -> Path:
+    return BUILD_DIR / "nvcc.log"
 
 
-def build(force: bool = False, src_dir: Path = SRC_DIR,
-          build_dir: Path = BUILD_DIR) -> Path:
-    """Compile the kernel library from src_dir into build_dir if it is
+def build(force: bool = False) -> Path:
+    """Compile the kernel library from SRC_DIR into BUILD_DIR if it is
     missing or stale; returns its path.  One nvcc per source, all started
     together, then one link.  nvcc's output (with the -Xptxas -v register
-    and spill lines) is kept in ``log_path(build_dir)``.  Raises if nvcc
-    fails."""
-    out = lib_path(build_dir)
-    stamp_file = build_dir / "sources.stamp"
-    stamp = _stamp(src_dir)
+    and spill lines) is kept in ``log_path()``.  Raises if nvcc fails."""
+    out = lib_path()
+    stamp_file = BUILD_DIR / "sources.stamp"
+    stamp = _stamp()
     if (not force and out.exists() and stamp_file.exists()
             and stamp_file.read_text() == stamp):
         return out
-    build_dir.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     log = []
     # build beside the target and rename, so a concurrent loader never
     # maps a half-written library
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / (s + ".o")) for s in SOURCES]
         jobs = []
         for src, obj in zip(SOURCES, objs):
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src_dir / src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(SRC_DIR / src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -107,7 +105,7 @@ def build(force: bool = False, src_dir: Path = SRC_DIR,
             if proc.returncode != 0:
                 failed = (f"nvcc link failed ({proc.returncode}):\n"
                           f"{proc.stdout}{proc.stderr}")
-        log_path(build_dir).write_text("".join(log))
+        log_path().write_text("".join(log))
         if failed is not None:
             raise RuntimeError(failed)
         os.replace(lib_tmp, out)

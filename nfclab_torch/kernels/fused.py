@@ -112,38 +112,27 @@ class FFMaskArgs(ctypes.Structure):
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with the argument
     types of every entry point."""
-    return bind(build())
-
-
-def bind(path) -> ctypes.CDLL:
-    """Load a kernel library built from csrc/ and set the argument types
-    of every entry point."""
     from .conditioner import CondScanArgs
     from .fused_v2 import V2Args
     from .probes import CopyProbeArgs, ProbeArgs
 
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(build()))
     lib.nfclab_ff_scan.argtypes = [
         ctypes.POINTER(FFScanArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.nfclab_ff_scan.restype = ctypes.c_int
-    # the narrow scan (absent from libraries built before it)
-    if hasattr(lib, "nfclab_ff_scan_narrow"):
-        lib.nfclab_ff_scan_narrow.argtypes = lib.nfclab_ff_scan.argtypes
-        lib.nfclab_ff_scan_narrow.restype = ctypes.c_int
+    lib.nfclab_ff_scan_narrow.argtypes = lib.nfclab_ff_scan.argtypes
+    lib.nfclab_ff_scan_narrow.restype = ctypes.c_int
     lib.nfclab_ff_mask.argtypes = [
         ctypes.POINTER(FFMaskArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     lib.nfclab_ff_mask.restype = ctypes.c_int
-    # the staged mask's geometry (absent from libraries built before it
-    # staged its lag windows)
-    if hasattr(lib, "nfclab_ff_mask_geometry"):
-        lib.nfclab_ff_mask_geometry.argtypes = [
-            ctypes.POINTER(FFMaskArgs), ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
-        lib.nfclab_ff_mask_geometry.restype = ctypes.c_int
+    lib.nfclab_ff_mask_geometry.argtypes = [
+        ctypes.POINTER(FFMaskArgs), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+    lib.nfclab_ff_mask_geometry.restype = ctypes.c_int
     lib.nfclab_cond_scan.argtypes = [
         ctypes.POINTER(CondScanArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
@@ -162,14 +151,11 @@ def bind(path) -> ctypes.CDLL:
     lib.nfclab_v2_scan_smem.restype = ctypes.c_int64
     lib.nfclab_v2_nstate.argtypes = []
     lib.nfclab_v2_nstate.restype = ctypes.c_int
-    # the mask kernel's geometry (absent from libraries built before it
-    # staged its channels)
-    if hasattr(lib, "nfclab_v2_mask_geometry"):
-        lib.nfclab_v2_mask_geometry.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
-        lib.nfclab_v2_mask_geometry.restype = ctypes.c_int
-        lib.nfclab_v2_mask_smem.argtypes = []
-        lib.nfclab_v2_mask_smem.restype = ctypes.c_int64
+    lib.nfclab_v2_mask_geometry.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int]
+    lib.nfclab_v2_mask_geometry.restype = ctypes.c_int
+    lib.nfclab_v2_mask_smem.argtypes = []
+    lib.nfclab_v2_mask_smem.restype = ctypes.c_int64
     lib.nfclab_copy_probe.argtypes = [
         ctypes.POINTER(CopyProbeArgs), ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p,
@@ -292,8 +278,7 @@ def launch_scan(value_tm, state_in, state_out, deps, extra: dict, base: int,
     a.group = scan_group(plan)
     stream = torch.cuda.current_stream(value_tm.device).cuda_stream
     index = value_tm.device.index
-    if (hasattr(lib, "nfclab_ff_scan_narrow")
-            and scan_narrow(B, plan, sm_count(index))):
+    if scan_narrow(B, plan, sm_count(index)):
         check(lib, lib.nfclab_ff_scan_narrow(
             ctypes.byref(a), index, SCAN_NARROW_THREADS,
             scan_narrow_smem(plan), stream), "ff_scan_narrow")
@@ -435,22 +420,22 @@ def mask_args(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
     return a
 
 
-def _library_geometry(lib, a, want_mask, want_md, plan) -> list:
+def _library_geometry(a, want_mask, want_md, plan) -> list:
     g = (ctypes.c_int32 * 256)()
-    n = lib.nfclab_ff_mask_geometry(ctypes.byref(a), int(want_mask),
-                                    int(want_md), g, 256)
+    n = library().nfclab_ff_mask_geometry(ctypes.byref(a), int(want_mask),
+                                          int(want_md), g, 256)
     if n < 0:
         raise ValueError(f"kernel plan exceeds ff_mask_kernel's limits: "
                          f"{plan}")
     return list(g[:n])
 
 
-def library_mask_geometry(lib, plan, lay, want_mask: bool = True,
+def library_mask_geometry(plan, lay, want_mask: bool = True,
                           want_md: bool = False) -> list:
     """ff_mask_kernel's geometry for a plan and a selection as the library
     computes it (nfclab_ff_mask_geometry)."""
     a = mask_args(None, None, None, None, None, None, (0.0,) * 5, plan, lay)
-    return _library_geometry(lib, a, want_mask, want_md, plan)
+    return _library_geometry(a, want_mask, want_md, plan)
 
 
 def _overlap(x, y) -> bool:
@@ -474,8 +459,7 @@ def launch_mask(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
     lib = library()
     a = mask_args(deps, value_tm, state_in, state_out, out_mask, out_md, mp,
                   plan, lay)
-    g = _library_geometry(lib, a, out_mask is not None, out_md is not None,
-                          plan)
+    g = _library_geometry(a, out_mask is not None, out_md is not None, plan)
     if g[5] == 0:
         raise ValueError(
             f"the mask's lag windows need {g[6]} B of shared memory per "

@@ -134,8 +134,9 @@ def mask_smem() -> int:
     return bars + 128 * sum(ch[3] for ch in MASK_CHANNELS)
 
 
-def library_mask_geometry(lib) -> tuple:
+def library_mask_geometry() -> tuple:
     """(geometry, shared memory) of the library's v2_mask_kernel."""
+    lib = library()
     g = (ctypes.c_int32 * 64)()
     n = lib.nfclab_v2_mask_geometry(g, 64)
     return list(g[:n]), lib.nfclab_v2_mask_smem()

@@ -39,6 +39,10 @@ from ..core.params import SignalParams
 from ..io.wav import read_wav
 from .decoder import NfcDecoder
 
+# stats counters of decode_batch's steps (trace.Lap)
+_COUNTERS = {"batch.read": "read_s", "batch.condition": "condition_s",
+             "batch.pool": "pool_s", "batch.walk": "walk_wait_s"}
+
 # job list inherited by fork-pool workers (copy-on-write pages: no sample
 # pickling, no interpreter boot — see _fork_ok)
 _FORK_JOBS: list | None = None
@@ -124,16 +128,19 @@ def _walk_one(args) -> list[Frame]:
     )
 
 
-def _pool_map(pool, fn, items: list, stats: dict | None, trace) -> list:
+def _pool_map(pool, fn, items: list, stats: dict | None) -> list:
     """fn over items on `pool`, an executor shut down at the end, in order.
     Submitting every item is the step ``batch.pool`` (``pool_s``: a
     process pool starts its workers as the first items go in, and a spawn
     worker boots while the parent waits); waiting for the results and the
     shutdown is ``batch.walk`` (``walk_wait_s``)."""
+    from . import trace
+
     with pool:
-        with trace.timed(stats, "pool_s", "batch.pool"):
+        lap = trace.Lap(stats, _COUNTERS)
+        with lap.step("batch.pool"):
             results = pool.map(fn, items)
-        with trace.timed(stats, "walk_wait_s", "batch.walk"):
+        with lap.step("batch.walk"):
             out = list(results)
             pool.shutdown()
     return out
@@ -166,7 +173,8 @@ def decode_batch(
     the pool) and ``walk_wait_s`` (waiting on the walks, or walking, and
     the pool's shutdown), with the device conditioner's own counters
     (``condition_jax``'s ``stats`` but its ``samples``).  Each step is a
-    span of ``runtime/trace`` while spans record: ``batch.read``,
+    step of a ``trace.Lap`` made where it starts, so it counts its own
+    block, and a span while spans record: ``batch.read``,
     ``batch.condition``, ``batch.pool``, ``batch.walk``."""
     from ..dsp.conditioner import condition_jax
     from ..native import condition_exact
@@ -194,19 +202,20 @@ def decode_batch(
                 range(len(paths)),
                 key=lambda i: -os.path.getsize(paths[i]),
             )
-            with trace.timed(stats, "pool_s", "batch.pool"):
+            lap = trace.Lap(stats, _COUNTERS)
+            with lap.step("batch.pool"):
                 ex = persistent_pool(workers)
                 results = ex.map(
                     _walk_path,
                     [(paths[i], decoder_kwargs) for i in order],
                 )
-            with trace.timed(stats, "walk_wait_s", "batch.walk"):
+            with lap.step("batch.walk"):
                 frames = list(results)
             return {paths[i]: f for i, f in zip(order, frames)}
 
     all_samples: list[np.ndarray] = []
     rates: list[int] = []
-    with trace.timed(stats, "read_s", "batch.read"):
+    with trace.Lap(stats, _COUNTERS).step("batch.read"):
         for path in paths:
             samples, info = read_wav(path)
             all_samples.append(samples)
@@ -281,8 +290,8 @@ def decode_batch(
         if frontend == "host" and conditioner == "jax":
             # device conditioning runs in the parent (workers never touch
             # the device)
-            with trace.timed(stats, "condition_s", "batch.condition",
-                             samples=len(samples)):
+            with trace.Lap(stats, _COUNTERS).step("batch.condition",
+                                                  samples=len(samples)):
                 cond = condition_jax(samples, params, device=device,
                                      stats=cond_stats)
         # otherwise native conditioning runs IN the workers
@@ -318,14 +327,14 @@ def decode_batch(
             # there (GIL-free native walks)
             workers = 1 if ncpu <= 2 else min(len(paths), ncpu)
     if workers <= 1 or len(paths) == 1:
-        with trace.timed(stats, "walk_wait_s", "batch.walk"):
+        with trace.Lap(stats, _COUNTERS).step("batch.walk"):
             return {path: _walk_one(job) for path, job in zip(paths, jobs)}
 
     if pool == "thread":
         from concurrent.futures import ThreadPoolExecutor
 
         frames = _pool_map(ThreadPoolExecutor(max_workers=workers),
-                           _walk_one, jobs, stats, trace)
+                           _walk_one, jobs, stats)
         return dict(zip(paths, frames))
 
     if fork_ok:
@@ -338,7 +347,7 @@ def decode_batch(
             frames = _pool_map(ProcessPoolExecutor(
                 max_workers=workers,
                 mp_context=multiprocessing.get_context("fork"),
-            ), _walk_fork, list(range(len(jobs))), stats, trace)
+            ), _walk_fork, list(range(len(jobs))), stats)
         finally:
             _FORK_JOBS = None
         return dict(zip(paths, frames))
@@ -347,5 +356,5 @@ def decode_batch(
     # and forking it risks deadlock in the children
     frames = _pool_map(ProcessPoolExecutor(
         max_workers=workers, mp_context=multiprocessing.get_context("spawn")
-    ), _walk_one, jobs, stats, trace)
+    ), _walk_one, jobs, stats)
     return dict(zip(paths, frames))

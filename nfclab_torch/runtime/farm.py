@@ -472,9 +472,10 @@ class CudaStreamFarm:
     ``perf_counter`` seconds): ``io_idle_s`` (the IO thread idle between
     one device pass and the next), ``device_s`` split by step
     (``upload_s``, ``launch_s``, ``compact_s``, ``fetch_s``,
-    ``verify_s``, ``repair_s``: cuda_channels.StepSums) and, over
-    streams, each stream's walk in wall seconds (``walk_busy_s``) and in
-    its thread's CPU seconds (``walk_cpu_s``); and the scan's launches in
+    ``verify_s``, ``repair_s``: the steps of one ``trace.Lap`` a pass,
+    named by cuda_channels.LAP_COUNTERS) and, over streams, each stream's
+    walk in wall seconds (``walk_busy_s``) and in its thread's CPU
+    seconds (``walk_cpu_s``); and the scan's launches in
     the device passes (``scan_launches``), of them those on the narrow
     kernel (``scan_narrow_launches``; fused_frontend.SCAN and
     SCAN_NARROW, the process's counts, gained while a pass runs).  While
@@ -672,10 +673,12 @@ class CudaStreamFarm:
         plain serial chain."""
         import time
 
-        from ..dsp.cuda_channels import CHAIN_CHUNK, StepSums
+        from ..dsp.cuda_channels import CHAIN_CHUNK, LAP_COUNTERS
 
         t0 = time.perf_counter()
         seq, lo = self._io_seq, self._io_clock
+        # the lap's steps tile the pass from here
+        lap = trace.Lap(self.stats, LAP_COUNTERS, seq)
         self._io_seq += 1
         self._io_clock += batch.shape[1]
         if self._io_end is not None:
@@ -691,7 +694,6 @@ class CudaStreamFarm:
             self.stats["seg_backoff_windows"] += 1
             use_seg = False
             kind = "backoff"
-        lap = StepSums(self.stats, t0, seq)
         scans = (SCAN.launches, SCAN_NARROW.launches)
         try:
             with trace.span("farm.device_pass", kind=kind, seq=seq, lo=lo,
@@ -716,8 +718,8 @@ class CudaStreamFarm:
         chain from the carried state (rebuilt on the card first where a
         segmented window left none)."""
         from ..dsp.cuda_channels import (
-            CHAIN_CHUNK, _expand_state, _step, chain_state0,
-            run_chained_masks, run_segmented_masks,
+            CHAIN_CHUNK, _expand_state, chain_state0, run_chained_masks,
+            run_segmented_masks,
         )
 
         seg = self.segments
@@ -741,7 +743,7 @@ class CudaStreamFarm:
                 self._seg_backoff_next = 8
             return per_stream
         if self._state is None:
-            with _step(lap, "upload"):
+            with lap.step("upload"):
                 if self._carry is not None:
                     self._state = _expand_state(self._carry["end"],
                                                 self._dev)

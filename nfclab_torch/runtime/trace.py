@@ -41,8 +41,12 @@ on the calling thread: ``batch.read``, ``batch.condition`` (``samples``)
 with the device conditioner's ``cond.upload``, ``cond.pass1``,
 ``cond.verify`` (a ``cond.repair`` under it for each repaired ``block``),
 ``cond.fetch`` and ``cond.edge_tracker`` under it, ``batch.pool`` and
-``batch.walk``.  Their host seconds also add to the caller's always-on
-counters (``add_counts``, ``timed``).
+``batch.walk``.
+
+Every step of these, and of the offline engines (``chained_batch_masks``,
+``_run_batch_chained``, ``fused_batch_all``), goes through one ``Lap``,
+which adds its host seconds to the caller's always-on counters and is its
+span while spans record.
 """
 
 from __future__ import annotations
@@ -202,14 +206,54 @@ def add_counts(stats: dict | None, **counts) -> None:
             stats[k] = stats.get(k, 0) + v
 
 
-@contextlib.contextmanager
-def timed(stats: dict | None, counter: str, name: str, **args):
-    """``with timed(stats, counter, name):`` is a span of `name` while spans
-    record, and adds the block's host seconds to ``stats[counter]``."""
-    t0 = time.perf_counter()
-    with span(name, **args):
-        yield
-    add_counts(stats, **{counter: time.perf_counter() - t0})
+class Lap:
+    """The steps of one pass of a program, always on: ``with
+    lap.step(name, **args):`` adds the block's host seconds to
+    ``stats[counters[name]]`` (nothing where `stats` is None) and, while
+    spans record, is a span of `name` with `args` (and ``seq`` where the
+    lap has one).  No step makes a device sync.
+
+    The steps tile the lap from its making: a step counts from the end of
+    the lap's previous step to its own end, so what runs between two
+    steps counts in the second (the kernels an engine queues without a
+    sync count in the step that waits for them).  A step opened inside
+    another step of the same lap counts its own block alone, and the
+    enclosing step leaves it out."""
+
+    __slots__ = ("stats", "counters", "_args", "_t", "_open")
+
+    def __init__(self, stats: dict | None = None,
+                 counters: dict | None = None, seq: int | None = None):
+        self.stats = stats
+        self.counters = counters
+        self._args = {} if seq is None else {"seq": seq}
+        self._t = time.perf_counter()
+        self._open: list = []
+
+    def _count(self, name: str) -> None:
+        now = time.perf_counter()
+        if self.stats is not None:
+            key = self.counters[name]
+            self.stats[key] = self.stats.get(key, 0.0) + (now - self._t)
+        self._t = now
+
+    @contextlib.contextmanager
+    def step(self, name: str, **args):
+        if self._open:
+            self._count(self._open[-1])
+        self._open.append(name)
+        try:
+            with span(name, **self._args, **args):
+                yield
+        finally:
+            self._open.pop()
+        self._count(name)
+
+    def nested(self) -> "Lap":
+        """The lap of an engine call inside the open step (a repair's
+        serial chain): its steps are spans with this lap's ``seq`` while
+        spans record, and count in the enclosing step alone."""
+        return Lap(None, None, self._args.get("seq"))
 
 
 def spans(t0: float | None = None, t1: float | None = None) -> list:

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_synth import mixed_lanes, templates
+from torch_synth import carrier_lanes, mixed_lanes, templates
 
 pytestmark = pytest.mark.cuda
 
@@ -69,8 +69,6 @@ def _scan_lanes(b: int, t: int, seed: int) -> np.ndarray:
     in every lane a stretch of zero-mean noise (the field off, as a radio
     gives it: the envelope goes negative) and, in every other lane,
     zeros of both signs."""
-    from nfclab_torch.experiments.scan_levers import carrier_lanes
-
     x = carrier_lanes(b, t, seed=seed)
     rng = np.random.default_rng(seed)
     tpl = templates()

@@ -27,7 +27,7 @@ def _native_ok():
 
 @pytest.fixture(scope="module")
 def engine_run():
-    """(triggers by template name, StepTimes, wall seconds) of one
+    """(triggers by template name, its ``stats``, wall seconds) of one
     chained_batch_masks call."""
     if not _native_ok():
         pytest.skip("native library unavailable")
@@ -35,13 +35,12 @@ def engine_run():
 
     from nfclab_torch.dsp import cuda_channels as cc
 
-    steps = cc.StepTimes()
+    steps = {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cc, "CHAIN_CHUNK", 4096)
         t0 = time.perf_counter()
         res = cc.chained_batch_masks([tp.samples for tp in TEMPLATES], RATE,
-                                     k_chunks=4, device="cpu",
-                                     timings=steps)
+                                     k_chunks=4, device="cpu", stats=steps)
         wall = time.perf_counter() - t0
     return dict(zip(NAMES, res)), steps, wall
 
@@ -61,13 +60,58 @@ def ref_native(tmp_path_factory):
 
 
 def test_slice_step_times_cover_the_engine(engine_run):
-    """StepTimes names every step of the engine once and its steps add up
-    to no more than the call's wall time."""
+    """The engine's ``stats`` hold the seconds of every step under the
+    farm's counter names, and they add up to no more than the call's wall
+    time."""
     _, steps, wall = engine_run
-    assert set(steps) == {"setup", "stage", "upload", "chunks", "compact",
-                          "fetch", "overflow_rows", "assemble"}
+    assert set(steps) == {"stage_s", "upload_s", "launch_s", "compact_s",
+                          "fetch_s"}
     assert all(s >= 0.0 for s in steps.values())
     assert sum(steps.values()) <= wall
+
+
+# the counters each offline engine adds to its ``stats``
+ENGINE_COUNTERS = {
+    "chained_batch_masks": {"stage_s", "upload_s", "launch_s", "compact_s",
+                            "fetch_s"},
+    "_run_batch_chained": {"stage_s", "upload_s", "launch_s", "fetch_s"},
+    "fused_batch_all": {"stage_s", "upload_s", "launch_s", "fetch_s",
+                        "edge_tracker_s"},
+}
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINE_COUNTERS))
+def test_engine_stats_add_the_step_counters(engine, monkeypatch):
+    """Each offline engine adds exactly its steps' counters to ``stats``
+    (4096-sample chunks, 4-chunk windows, two captures of unequal length),
+    each at least zero, and they sum to no more than the call's wall
+    time."""
+    import functools
+    import time
+
+    from nfclab_torch.dsp import cuda_channels as cc
+
+    if engine == "fused_batch_all" and not _native_ok():
+        pytest.skip("native library unavailable")
+    monkeypatch.setattr(cc, "CHAIN_CHUNK", 4096)
+    monkeypatch.setattr(cc, "_run_batch_chained", functools.partial(
+        cc._run_batch_chained, chunk=4096))
+    caps = [TEMPLATES[0].samples[:9000], TEMPLATES[1].samples[:5000]]
+    stats = {}
+    t0 = time.perf_counter()
+    if engine == "chained_batch_masks":
+        out = cc.chained_batch_masks(caps, RATE, k_chunks=4, device="cpu",
+                                     stats=stats)
+    elif engine == "_run_batch_chained":
+        out = cc._run_batch_chained(caps, RATE, 0.01, cc.fetch_names(RATE),
+                                    device="cpu", stats=stats)
+    else:
+        out = cc.fused_batch_all(caps, RATE, device="cpu", stats=stats)
+    wall = time.perf_counter() - t0
+    assert len(out) == len(caps)
+    assert set(stats) == ENGINE_COUNTERS[engine]
+    assert all(s >= 0.0 for s in stats.values())
+    assert sum(stats.values()) <= wall
 
 
 def _json_lines(frames, mod):

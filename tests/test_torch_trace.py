@@ -1,6 +1,6 @@
 """The live mask path's measurement on the CPU: the spans of
 nfclab_torch/runtime/trace.py and the counters CudaStreamFarm.stats adds
-in mask mode (cuda_channels.StepSums), with device="cpu".
+in mask mode (the steps of a trace.Lap), with device="cpu".
 
 The farm runs its real engines (the kernels' plain versions) over two
 template lanes, the chained chunk cut to 1024 so a window is 4096
@@ -167,6 +167,35 @@ def test_window_spans_share_seq_and_nest(runs):
     assert [s.args["offset"] for s in stages] == list(range(0, N, FEED))
 
 
+def test_lap_steps_tile_and_nest(monkeypatch):
+    """trace.Lap on a stepped clock: a step counts from the previous
+    step's end (the lap's making for the first), a step inside another
+    counts alone and the outer leaves it out, the counts tile the lap,
+    and each step is a span of its name with the lap's seq; a nested lap
+    records spans and counts nothing."""
+    clock = [0.0]
+    monkeypatch.setattr(trace.time, "perf_counter", lambda: clock[0])
+    stats = {"b_s": 10.0}
+    lap = trace.Lap(stats, {"a": "a_s", "b": "b_s", "inner": "in_s"}, seq=3)
+    clock[0] = 1.0   # before the first step: counts in it
+    with trace.enable():
+        with lap.step("a"):
+            clock[0] = 3.0
+        with lap.step("b", k=1):
+            clock[0] = 4.0
+            with lap.step("inner"):
+                clock[0] = 6.0
+            with lap.nested().step("a"):
+                clock[0] = 6.5
+            clock[0] = 7.0
+    assert stats == {"a_s": 3.0, "b_s": 12.0, "in_s": 2.0}
+    got = {s.name: s for s in trace.spans()}
+    assert got["b"].args == {"seq": 3, "k": 1}
+    assert got["inner"].parent == got["b"].id
+    assert (got["inner"].start, got["inner"].end) == (4.0, 6.0)
+    assert got["a"].args == {"seq": 3} and got["a"].parent == got["b"].id
+
+
 def test_export_writes_chrome_json(tmp_path):
     with trace.enable():
         with trace.span("farm.device_pass", kind="serial", seq=0):
@@ -193,12 +222,12 @@ def test_export_writes_chrome_json(tmp_path):
 
 
 def _stand_in_engines(mp, step_s=0.002):
-    """Both engines replaced by ones that step through the lap seam (each
-    step a short sleep) and report no trigger."""
+    """Both engines replaced by ones that step through the farm's lap
+    (each step a short sleep) and report no trigger."""
 
     def steps(lap, names):
         for step in names:
-            with cc._step(lap, step):
+            with lap.step(step):
                 time.sleep(step_s)
 
     def none(n):
@@ -210,14 +239,13 @@ def _stand_in_engines(mp, step_s=0.002):
                 "end": np.zeros((n, 1), np.float32)}
 
     def chained(blocks, state, base0, pt, mp_, cap_div=16, chunk=None,
-                sample_rate=RATE, lap=cc._no_lap, want_carry=False):
-        steps(lap, ("upload", "chunks", "compact", "fetch"))
+                sample_rate=RATE, lap=None, want_carry=False):
+        steps(lap, ("upload", "launch", "compact", "fetch"))
         n = blocks.shape[0]
         return (none(n), state, carry(n)) if want_carry else (none(n), state)
 
-    def segmented(blocks, carry_in, pt, mp_, segments, lap=cc._no_lap,
-                  **kw):
-        steps(lap, ("upload", "chunks", "compact", "fetch", "verify"))
+    def segmented(blocks, carry_in, pt, mp_, segments, lap=None, **kw):
+        steps(lap, ("upload", "launch", "compact", "fetch", "verify"))
         n = blocks.shape[0]
         return none(n), dict(carry(n), tail=blocks[:, -cc.CHAIN_CHUNK:]), {
             "repaired_streams": 0, "repair_chunks": 0}

@@ -131,6 +131,23 @@ def mixed_lanes(b: int, t: int, seed: int = 0) -> np.ndarray:
     return x
 
 
+def carrier_lanes(streams: int, steps: int, seed: int = 0) -> np.ndarray:
+    """[steps, streams] f32 magnitudes (>= 0): a carrier per lane at a
+    seeded gain, 10% ASK dips of 3-40 samples, field-off gaps of 2k-20k
+    samples, noise."""
+    rng = np.random.default_rng(seed)
+    x = np.ones((steps, streams), np.float32)
+    x *= rng.uniform(0.5, 1.5, streams).astype(np.float32)
+    for b in range(streams):
+        starts = rng.integers(0, steps, 400)
+        for s, n in zip(starts, rng.integers(3, 40, starts.size)):
+            x[s : s + n, b] *= np.float32(0.9)
+        for s in rng.integers(0, steps, 2):
+            x[s : s + int(rng.integers(2000, 20000)), b] = 0.0
+    x += rng.standard_normal(x.shape, dtype=np.float32) * np.float32(2e-4)
+    return np.abs(x, out=x)
+
+
 def lane(tp: Template, n: int, seed: int):
     """(samples, repeats): the template repeated as often as it fits in n
     samples, then steady carrier, times a seeded gain plus a seeded offset
