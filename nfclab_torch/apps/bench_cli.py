@@ -109,7 +109,9 @@ def main(argv=None) -> int:
     ap.add_argument("--workers", type=int, default=None)
     ap.add_argument(
         "--pool", choices=["process", "thread"], default="process",
-        help="walk fan-out: processes, or threads (GIL-free native walks)",
+        help="walk fan-out: process forks workers while the process may "
+        "fork (no CUDA context, one thread), else threads; thread walks on "
+        "threads (GIL-free native walks)",
     )
     ap.add_argument(
         "--conditioner", choices=["native", "jax", "device"],

@@ -4,7 +4,14 @@ parallel host symbol walks.
 Counterpart of ``nfclab/runtime/batch.py``.  This is the data-parallel
 throughput configuration: the device frontend batches across captures on
 ``device`` (cuda unless the caller asks for the CPU), while the thin event
-walks fan out over host workers (threads or processes).
+walks fan out over host workers.
+
+The walks' executor, by default (``pool="process"``), follows one rule
+read from the process's state: fork workers while the parent may fork
+(``_fork_ok``: one thread, CUDA never initialized), otherwise threads over
+the parent's own arrays (the walk's native calls release the interpreter
+lock), so nothing is pickled and no interpreter boots.
+``pool="thread"`` always walks on threads.
 
 - ``frontend="host"`` with ``conditioner="jax"`` (the default): the device
   conditioner ``dsp.conditioner.condition_jax`` runs in the parent, capture
@@ -30,7 +37,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -128,19 +135,20 @@ def _walk_one(args) -> list[Frame]:
     )
 
 
-def _pool_map(pool, fn, items: list, stats: dict | None) -> list:
-    """fn over items on `pool`, an executor shut down at the end, in order.
-    Submitting every item is the step ``batch.pool`` (``pool_s``: a
-    process pool starts its workers as the first items go in, and a spawn
-    worker boots while the parent waits); waiting for the results and the
-    shutdown is ``batch.walk`` (``walk_wait_s``)."""
+def _pool_map(pool, kind: str, fn, items: list,
+              stats: dict | None) -> list:
+    """fn over items on `pool`, an executor of `kind` ("thread" or "fork")
+    shut down at the end, in order.  Submitting every item is the step
+    ``batch.pool`` (``pool_s``: a process pool starts its workers as the
+    first items go in); waiting for the results and the shutdown is
+    ``batch.walk`` (``walk_wait_s``; its span's ``pool`` is `kind`)."""
     from . import trace
 
     with pool:
         lap = trace.Lap(stats, _COUNTERS)
         with lap.step("batch.pool"):
             results = pool.map(fn, items)
-        with lap.step("batch.walk"):
+        with lap.step("batch.walk", pool=kind):
             out = list(results)
             pool.shutdown()
     return out
@@ -161,13 +169,17 @@ def decode_batch(
     on ``device``, event walks across a worker pool (see the module
     docstring for the frontend/conditioner pairs).
 
-    pool="thread" fans the walks over threads instead of processes: the hot
-    native calls release the GIL for their ctypes duration, so threads
-    scale on few-core hosts without paying interpreter boot + sample
-    pickling.
+    ``pool`` picks the walks' executor.  ``"process"`` (the default): fork
+    workers while ``_fork_ok()`` holds (the parent has one thread and no
+    CUDA context), otherwise min(captures, cores) threads walking the
+    parent's own arrays: the hot native calls release the GIL for their
+    ctypes duration, so threads scale without interpreter boot or sample
+    pickling.  ``"thread"``: threads always.  One capture, or one worker,
+    is walked in the parent.
 
     ``stats``, when given, adds to what it holds (one dict can total many
-    calls): ``captures``, ``samples`` (read by the parent), and the host
+    calls): ``captures``, ``thread_walks`` (the captures walked on
+    threads), ``samples`` (read by the parent), and the host
     seconds of ``read_s`` (the WAVs), ``condition_s`` (the device
     conditioner, capture by capture), ``pool_s`` (submitting the walks to
     the pool) and ``walk_wait_s`` (waiting on the walks, or walking, and
@@ -175,7 +187,8 @@ def decode_batch(
     (``condition_jax``'s ``stats`` but its ``samples``).  Each step is a
     step of a ``trace.Lap`` made where it starts, so it counts its own
     block, and a span while spans record: ``batch.read``,
-    ``batch.condition``, ``batch.pool``, ``batch.walk``."""
+    ``batch.condition``, ``batch.pool``, ``batch.walk`` (its ``pool``:
+    ``"thread"``, ``"fork"``, or ``"serial"`` where the parent walks)."""
     from ..dsp.conditioner import condition_jax
     from ..native import condition_exact
     from . import trace
@@ -184,9 +197,11 @@ def decode_batch(
         raise ValueError(f"unknown frontend {frontend!r}")
     if conditioner not in ("jax", "native", "device"):
         raise ValueError(f"unknown conditioner {conditioner!r}")
+    if pool not in ("process", "thread"):
+        raise ValueError(f"unknown pool {pool!r}")
     if not paths:
         return {}
-    trace.add_counts(stats, captures=len(paths))
+    trace.add_counts(stats, captures=len(paths), thread_walks=0)
     power_thr = decoder_kwargs.get("power_level_threshold", 0.01)
     thresholds = decoder_kwargs.get("thresholds")
 
@@ -227,8 +242,6 @@ def decode_batch(
     if frontend == "mask":
         # one chained device pass for every capture's detect triggers; it
         # runs on a second thread while the parent conditions natively
-        from concurrent.futures import ThreadPoolExecutor as _TPE
-
         from ..dsp.cuda_channels import fused_batch_masks, resolve_device
 
         resolve_device(device)
@@ -237,7 +250,7 @@ def decode_batch(
                 "fused batch decode requires a uniform sample rate; "
                 f"got {sorted(set(rates))}"
             )
-        with _TPE(1) as bg:
+        with ThreadPoolExecutor(1) as bg:
             fut = bg.submit(
                 fused_batch_masks, all_samples, rates[0], power_thr,
                 thresholds=thresholds, device=device,
@@ -316,45 +329,28 @@ def decode_batch(
         cond_stats.pop("samples")
         trace.add_counts(stats, **cond_stats)
 
-    fork_ok = _fork_ok()
+    kind = "fork" if pool == "process" and _fork_ok() else "thread"
     if workers is None:
-        ncpu = os.cpu_count() or 1
-        if pool == "thread" or fork_ok:
-            workers = min(len(paths), ncpu)
-        else:
-            # spawn-pool overhead (interpreter boot + sample pickling)
-            # costs more than it buys below ~4 cores; threads scale even
-            # there (GIL-free native walks)
-            workers = 1 if ncpu <= 2 else min(len(paths), ncpu)
+        workers = min(len(paths), os.cpu_count() or 1)
     if workers <= 1 or len(paths) == 1:
-        with trace.Lap(stats, _COUNTERS).step("batch.walk"):
+        with trace.Lap(stats, _COUNTERS).step("batch.walk", pool="serial"):
             return {path: _walk_one(job) for path, job in zip(paths, jobs)}
 
-    if pool == "thread":
-        from concurrent.futures import ThreadPoolExecutor
-
-        frames = _pool_map(ThreadPoolExecutor(max_workers=workers),
+    if kind == "thread":
+        trace.add_counts(stats, thread_walks=len(jobs))
+        frames = _pool_map(ThreadPoolExecutor(max_workers=workers), kind,
                            _walk_one, jobs, stats)
         return dict(zip(paths, frames))
 
-    if fork_ok:
-        # fork workers inherit the job list as copy-on-write pages: no
-        # interpreter boot, no sample pickling.  Only taken while the
-        # parent is single-threaded with CUDA never initialized (_fork_ok).
-        global _FORK_JOBS
-        _FORK_JOBS = jobs
-        try:
-            frames = _pool_map(ProcessPoolExecutor(
-                max_workers=workers,
-                mp_context=multiprocessing.get_context("fork"),
-            ), _walk_fork, list(range(len(jobs))), stats)
-        finally:
-            _FORK_JOBS = None
-        return dict(zip(paths, frames))
-
-    # spawn, not fork: the parent holds a CUDA context or other threads,
-    # and forking it risks deadlock in the children
-    frames = _pool_map(ProcessPoolExecutor(
-        max_workers=workers, mp_context=multiprocessing.get_context("spawn")
-    ), _walk_one, jobs, stats)
+    # fork workers inherit the job list as copy-on-write pages: no
+    # interpreter boot, no sample pickling
+    global _FORK_JOBS
+    _FORK_JOBS = jobs
+    try:
+        frames = _pool_map(ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("fork"),
+        ), kind, _walk_fork, list(range(len(jobs))), stats)
+    finally:
+        _FORK_JOBS = None
     return dict(zip(paths, frames))

@@ -1,7 +1,7 @@
 """The batch-corpus cell end to end on the CPU, at a tiny size: its
 configuration with the entry driver ``batch_corpus`` and decode_batch's
 defaults (the device conditioner's plain version here, in blocks of 8,192
-with halos of 4,096; the walks in a spawn pool), over a ring of 8
+with halos of 4,096; the walks on threads), over a ring of 8
 recordings of one template a round with 10,000 samples of field off.
 The warm-up walks the ring once (two calls of four), the window the
 next two calls.  A sound run is correct with every due frame and edge
@@ -33,8 +33,9 @@ def tiny_cell(tmp_path, monkeypatch):
 
     monkeypatch.setattr(cmod, "condition_jax", functools.partial(
         cmod.condition_jax, block=8192, halo=4096))
-    # the walks in a spawn pool, as on the card (CUDA is live there); a
-    # fork of this process would copy the threads of JAX and torch
+    # the walks on threads, as on the card (CUDA is live there, so the
+    # default does not fork); a fork of this process would copy the
+    # threads of JAX and torch
     monkeypatch.setattr(batch, "_fork_ok", lambda: False)
     pkg = tmp_path / "nfcbench"
     shutil.copytree(PKG, pkg, ignore=shutil.ignore_patterns(

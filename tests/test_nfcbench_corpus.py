@@ -14,7 +14,9 @@ path it measures, on the CPU (and one test on the card):
 - the entry driver with a ``decode_batch`` that takes no ``stats``, as
   an earlier program's;
 - on the card (``cuda``): ``condition_jax`` equals ``condition_exact`` in
-  all eight arrays on every recording of the ring.
+  all eight arrays on every recording of the ring; ``decode_batch`` with
+  its defaults, CUDA live before the walks, walks every capture on threads
+  and gives the native conditioner's frames.
 
 ``test_nfcbench_batch_cell.py`` runs the whole cell at a tiny size.
 """
@@ -252,6 +254,11 @@ def ring_spans():
     trace.clear()
 
 
+def _rows(frames):
+    return [(f.frame_type, f.tech_type, f.sample_start, f.sample_end,
+             bytes(f.data), f.frame_flags) for f in frames]
+
+
 def test_decode_batch_jax_equals_native_and_the_table(tmp_path, tiny,
                                                       cpu_conditioner,
                                                       ring_spans):
@@ -276,11 +283,7 @@ def test_decode_batch_jax_equals_native_and_the_table(tmp_path, tiny,
                         stats=stats)
     names = {s.name for s in ring_spans.spans()}
     for j, p in enumerate(paths):
-        lines = [(f.frame_type, f.tech_type, f.sample_start, f.sample_end,
-                  bytes(f.data), f.frame_flags) for f in got[p]]
-        assert lines == [(f.frame_type, f.tech_type, f.sample_start,
-                          f.sample_end, bytes(f.data), f.frame_flags)
-                         for f in want[p]]
+        assert _rows(got[p]) == _rows(want[p])
         lo = tiny.starts[j]
         table = sorted((f.data, f.start - lo, f.end - lo)
                        for f in tiny.frames_between(
@@ -301,6 +304,36 @@ def test_decode_batch_jax_equals_native_and_the_table(tmp_path, tiny,
     assert {"batch.read", "batch.condition", "batch.pool", "batch.walk",
             "cond.upload", "cond.pass1", "cond.verify", "cond.repair",
             "cond.fetch", "cond.edge_tracker"} <= names
+
+
+@pytest.mark.cuda
+def test_decode_batch_defaults_walk_on_threads_on_card(tmp_path, tiny):
+    """On the card, as the cell runs it: ``decode_batch`` with its defaults
+    over the tiny corpus's recordings.  CUDA is live before the walks
+    start, so every capture is walked on a thread, and the frames are the
+    native conditioner's, with data frames on every recording."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (nfclab_torch's kernels run only "
+                    "there)")
+    if not _native_ok():
+        pytest.skip("native library unavailable")
+    from nfcbench.drivers.batch_corpus import write_float_wav
+    from nfclab_torch.runtime.batch import decode_batch
+
+    paths = []
+    for j, x in enumerate(tiny.recordings):
+        paths.append(str(tmp_path / f"rec{j}.wav"))
+        write_float_wav(paths[-1], x, RATE)
+    stats: dict = {}
+    got = decode_batch(paths, device="cuda", stats=stats)
+    want = decode_batch(paths, conditioner="native", pool="thread")
+    assert list(got) == paths
+    for p in paths:
+        assert any(f.frame_type in (POLL, LISTEN) for f in got[p]), p
+        assert _rows(got[p]) == _rows(want[p]), p
+    assert stats["thread_walks"] == stats["captures"] == len(paths)
 
 
 def test_condition_jax_bit_exact_on_a_recording_and_stats_add(tiny):

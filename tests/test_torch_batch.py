@@ -9,6 +9,9 @@
   templates, with ``conditioner="jax"``, with ``frontend="mask"`` and with
   ``frontend="fused"`` (both conditioners), gives the native frames per
   path;
+- ``decode_batch``'s pools: the default walks on threads
+  (``thread_walks`` counts them) where the parent may not fork and forks
+  workers where it may; ``pool="thread"`` walks on threads even there;
 - the CLI's ``run --json --conditioner jax --device cpu`` prints what
   nfclab's ``run --json`` prints, and ``bench_cli --device cpu`` prints
   its JSON lines (also ``--frontend fused --conditioner device``);
@@ -108,6 +111,52 @@ def test_decode_batch_jax_and_mask_equal_native(wavs, cpu_conditioner,
             assert _lines(got[p]) == _lines(want[p]), (kw, p)
 
 
+@pytest.mark.parametrize("pool,fork_ok,kind", [
+    (None, False, "thread"), (None, True, "fork"), ("thread", True,
+                                                    "thread")])
+def test_decode_batch_pool_rule(pool, fork_ok, kind, wavs, cpu_conditioner,
+                                monkeypatch):
+    """The default pool (``pool`` None here: not passed) walks on threads
+    where the parent may not fork, and forks where it may; ``pool="thread"``
+    walks on threads even where the parent may fork.  A spy stands in for
+    ``ProcessPoolExecutor``: it records the start method and walks on
+    threads, so no process starts.  Two captures (the fewest a pool walks) give the native frames;
+    ``thread_walks`` counts the captures walked on threads, and the
+    ``batch.walk`` span names the executor."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import nfclab_torch.runtime.batch as batch
+    from nfclab_torch.runtime import trace
+
+    paths = wavs[:2]
+    want = batch.decode_batch(paths, conditioner="native", pool="thread")
+    made = []
+
+    def spy(max_workers, mp_context):
+        if kind == "thread":
+            raise AssertionError("a process pool where threads walk")
+        made.append(mp_context.get_start_method())
+        return ThreadPoolExecutor(max_workers)
+
+    monkeypatch.setattr(batch, "_fork_ok", lambda: fork_ok)
+    monkeypatch.setattr(batch, "ProcessPoolExecutor", spy)
+    stats: dict = {}
+    trace.clear()
+    with trace.enable():
+        got = batch.decode_batch(paths, device="cpu", stats=stats,
+                                 **({} if pool is None else {"pool": pool}))
+    walks = [s.args for s in trace.spans() if s.name == "batch.walk"]
+    trace.clear()
+    assert list(got) == paths
+    for p in paths:
+        assert got[p], p
+        assert _lines(got[p]) == _lines(want[p]), p
+    assert made == ([] if kind == "thread" else [kind])
+    assert stats["captures"] == 2
+    assert stats["thread_walks"] == (2 if kind == "thread" else 0)
+    assert walks == [{"pool": kind}]
+
+
 def test_decode_batch_refusals(wavs, monkeypatch):
     """frontend="fused" gives the native frames with both conditioners:
     channels from the block layout and triggers from the chained engine
@@ -125,6 +174,8 @@ def test_decode_batch_refusals(wavs, monkeypatch):
         for p in wavs:
             assert got[p], (kw, p)
             assert _lines(got[p]) == _lines(want[p]), (kw, p)
+    with pytest.raises(ValueError, match="unknown pool"):
+        batch.decode_batch(wavs, pool="spawn")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailable):
         batch.decode_batch(wavs)                   # conditioner="jax"
