@@ -629,12 +629,33 @@ def run_segmented_masks(blocks: np.ndarray, carry: dict, pt, mp,
     return out, new_carry, stats
 
 
+# chunks in a dispatch window of the chained batch engine
+BATCH_K_CHUNKS = 32
+
+
+def _mask_windows(t_max: int, k_chunks: int):
+    """(lo, width) of each dispatch window of the chained batch engine
+    over `t_max` samples: k_chunks full chunks, the final window bucketed
+    to a power of two (the JAX engine's window sequence)."""
+    lo = 0
+    while lo < t_max:
+        rem = -(-(t_max - lo) // CHAIN_CHUNK)
+        k = min(k_chunks, rem)
+        if k & (k - 1):
+            k2 = 1
+            while k2 < k:
+                k2 *= 2
+            k = min(k2, k_chunks)
+        yield lo, k * CHAIN_CHUNK
+        lo += k * CHAIN_CHUNK
+
+
 def chained_batch_masks(
     captures: list[np.ndarray],
     sample_rate: int,
     power_level_threshold: float = 0.01,
     thresholds=None,
-    k_chunks: int = 32,
+    k_chunks: int = BATCH_K_CHUNKS,
     device="cuda",
     stats: dict | None = None,
 ) -> list[dict]:
@@ -671,18 +692,7 @@ def chained_batch_masks(
     mod = kernel_plan(sample_rate).fold_modulus
     idx_parts: list[list] = [[] for _ in caps]
     bit_parts: list[list] = [[] for _ in caps]
-    lo = 0
-    while lo < t_max:
-        # window width: k_chunks full chunks, the final window bucketed to
-        # a power of two (the JAX engine's window sequence)
-        rem = -(-(t_max - lo) // CHAIN_CHUNK)
-        k = min(k_chunks, rem)
-        if k & (k - 1):
-            k2 = 1
-            while k2 < k:
-                k2 *= 2
-            k = min(k2, k_chunks)
-        width = k * CHAIN_CHUNK
+    for lo, width in _mask_windows(t_max, k_chunks):
         live = sum(1 for c in caps if len(c) > lo)
         with lap.step("stage"):
             batch = _stage(caps, lo, width, live)
@@ -702,7 +712,6 @@ def chained_batch_masks(
                 keep = rel + lo < len(caps[i])
                 idx_parts[i].append(rel[keep] + lo)
                 bit_parts[i].append(bits[keep])
-        lo += width
     with lap.step("fetch"):
         sorted_out = [
             {
@@ -745,14 +754,25 @@ def fused_batch_masks(
     power_level_threshold: float = 0.01,
     thresholds=None,
     device="cuda",
+    stats: dict | None = None,
 ) -> list[dict]:
     """Sparse detect triggers for MANY captures (chained exact-state
     engine, one device pass over stream-stacked captures — see
-    fused_capture_masks)."""
-    return chained_batch_masks(
+    fused_capture_masks).  ``stats``, when given, adds the engine's step
+    counters (chained_batch_masks) and ``windows``: the streams x
+    dispatch windows run (a capture counts in each window it is live
+    in)."""
+    out = chained_batch_masks(
         captures, sample_rate, power_level_threshold,
-        thresholds=thresholds, device=device,
+        thresholds=thresholds, k_chunks=BATCH_K_CHUNKS, device=device,
+        stats=stats,
     )
+    if stats is not None and captures:
+        lens = [len(c) for c in captures]
+        trace.add_counts(stats, windows=sum(
+            sum(1 for n in lens if n > lo)
+            for lo, _ in _mask_windows(max(lens), BATCH_K_CHUNKS)))
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -48,7 +48,10 @@ from .decoder import NfcDecoder
 
 # stats counters of decode_batch's steps (trace.Lap)
 _COUNTERS = {"batch.read": "read_s", "batch.condition": "condition_s",
-             "batch.pool": "pool_s", "batch.walk": "walk_wait_s"}
+             "batch.pool": "pool_s", "batch.walk": "walk_wait_s",
+             "batch.masks": "masks_s",
+             "batch.condition_native": "native_condition_s",
+             "batch.masks_wait": "masks_wait_s"}
 
 # job list inherited by fork-pool workers (copy-on-write pages: no sample
 # pickling, no interpreter boot — see _fork_ok)
@@ -135,6 +138,28 @@ def _walk_one(args) -> list[Frame]:
     )
 
 
+def _masks_pass(captures: list, rate: int, power_thr: float, thresholds,
+                device) -> tuple:
+    """The mask frontend's device pass over every capture, on the thread
+    that calls it: (the captures' trigger sets, the pass's own counters).
+    The counters are a dict of this thread's: ``masks_s`` (the pass, span
+    ``batch.masks``) and fused_batch_masks' counters, each prefixed
+    ``masks_`` so they never mix with the device conditioner's."""
+    from ..dsp.cuda_channels import fused_batch_masks
+    from . import trace
+
+    own: dict = {}
+    engine: dict = {}
+    with trace.Lap(own, _COUNTERS).step(
+            "batch.masks", captures=len(captures),
+            samples=sum(len(x) for x in captures)):
+        sets = fused_batch_masks(captures, rate, power_thr,
+                                 thresholds=thresholds, device=device,
+                                 stats=engine)
+    own.update({f"masks_{k}": v for k, v in engine.items()})
+    return sets, own
+
+
 def _pool_map(pool, kind: str, fn, items: list,
               stats: dict | None) -> list:
     """fn over items on `pool`, an executor of `kind` ("thread" or "fork")
@@ -184,11 +209,20 @@ def decode_batch(
     conditioner, capture by capture), ``pool_s`` (submitting the walks to
     the pool) and ``walk_wait_s`` (waiting on the walks, or walking, and
     the pool's shutdown), with the device conditioner's own counters
-    (``condition_jax``'s ``stats`` but its ``samples``).  Each step is a
-    step of a ``trace.Lap`` made where it starts, so it counts its own
-    block, and a span while spans record: ``batch.read``,
-    ``batch.condition``, ``batch.pool``, ``batch.walk`` (its ``pool``:
-    ``"thread"``, ``"fork"``, or ``"serial"`` where the parent walks)."""
+    (``condition_jax``'s ``stats`` but its ``samples``).  With
+    ``frontend="mask"``: ``masks_s`` (the device pass, on its own thread),
+    ``native_condition_s`` (the parent's native conditioning, capture by
+    capture), ``masks_wait_s`` (the parent blocked on the device pass once
+    its conditioning is done), and the pass's engine counters prefixed
+    ``masks_`` (``masks_stage_s``, ``masks_upload_s``, ``masks_launch_s``,
+    ``masks_compact_s``, ``masks_fetch_s``, ``masks_windows``: streams x
+    dispatch windows).  Each step is a step of a ``trace.Lap`` made where
+    it starts, so it counts its own block, and a span while spans record:
+    ``batch.read``, ``batch.condition``, ``batch.masks`` (the pass's
+    thread; ``captures``, ``samples``), ``batch.condition_native``
+    (``samples``), ``batch.masks_wait``, ``batch.pool``, ``batch.walk``
+    (its ``pool``: ``"thread"``, ``"fork"``, or ``"serial"`` where the
+    parent walks)."""
     from ..dsp.conditioner import condition_jax
     from ..native import condition_exact
     from . import trace
@@ -242,7 +276,7 @@ def decode_batch(
     if frontend == "mask":
         # one chained device pass for every capture's detect triggers; it
         # runs on a second thread while the parent conditions natively
-        from ..dsp.cuda_channels import fused_batch_masks, resolve_device
+        from ..dsp.cuda_channels import resolve_device
 
         resolve_device(device)
         if len(set(rates)) > 1:
@@ -250,17 +284,20 @@ def decode_batch(
                 "fused batch decode requires a uniform sample rate; "
                 f"got {sorted(set(rates))}"
             )
+        lap = trace.Lap(stats, _COUNTERS)
         with ThreadPoolExecutor(1) as bg:
-            fut = bg.submit(
-                fused_batch_masks, all_samples, rates[0], power_thr,
-                thresholds=thresholds, device=device,
-            )
+            fut = bg.submit(_masks_pass, all_samples, rates[0], power_thr,
+                            thresholds, device)
             for i, (samples, rate) in enumerate(zip(all_samples, rates)):
                 params = SignalParams(
                     rate, power_level_threshold=power_thr
                 )
-                cond_sets[i] = condition_exact(samples, params)
-            channel_sets = fut.result()
+                with lap.step("batch.condition_native",
+                              samples=len(samples)):
+                    cond_sets[i] = condition_exact(samples, params)
+            with lap.step("batch.masks_wait"):
+                channel_sets, mask_stats = fut.result()
+        trace.add_counts(stats, **mask_stats)
     elif frontend == "fused":
         # all captures in one device pass; captures must share one sample
         # rate

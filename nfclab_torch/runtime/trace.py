@@ -41,7 +41,10 @@ on the calling thread: ``batch.read``, ``batch.condition`` (``samples``)
 with the device conditioner's ``cond.upload``, ``cond.pass1``,
 ``cond.verify`` (a ``cond.repair`` under it for each repaired ``block``),
 ``cond.fetch`` and ``cond.edge_tracker`` under it, ``batch.pool`` and
-``batch.walk``.
+``batch.walk``; with the mask frontend ``batch.condition_native`` (a
+capture's native conditioning) and ``batch.masks_wait`` on the calling
+thread, and ``batch.masks`` (the device pass, with the engine's steps
+under it) on a thread of its own.
 
 Every step of these, and of the offline engines (``chained_batch_masks``,
 ``_run_batch_chained``, ``fused_batch_all``), goes through one ``Lap``,

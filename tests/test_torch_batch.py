@@ -12,6 +12,10 @@
 - ``decode_batch``'s pools: the default walks on threads
   (``thread_walks`` counts them) where the parent may not fork and forks
   workers where it may; ``pool="thread"`` walks on threads even there;
+- ``decode_batch``'s counters: ``frontend="mask"`` keeps the device
+  pass's, the parent's native conditioning's and its wait's, and the
+  engine's prefixed ``masks_``, and the parent's steps cover the call;
+  the host frontend keeps the counters and spans it kept before;
 - the CLI's ``run --json --conditioner jax --device cpu`` prints what
   nfclab's ``run --json`` prints, and ``bench_cli --device cpu`` prints
   its JSON lines (also ``--frontend fused --conditioner device``);
@@ -186,6 +190,99 @@ def test_decode_batch_refusals(wavs, monkeypatch):
             batch.decode_batch(wavs, frontend="fused", conditioner=cond)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     assert not batch._fork_ok()
+
+
+MASK_STEPS = ("masks_stage_s", "masks_upload_s", "masks_launch_s",
+              "masks_compact_s", "masks_fetch_s")
+
+
+def test_decode_batch_mask_counters(wavs, monkeypatch):
+    """``frontend="mask"`` (4096-sample chunks, 4-chunk windows, two
+    captures of unequal length, so four windows): the device pass's
+    seconds on its own thread, the parent's native conditioning and its
+    wait on the pass, the engine's steps prefixed ``masks_`` and
+    ``masks_windows``, the streams x windows the engine ran (counted here
+    at the engine's entry).  The parent's steps cover the call's wall
+    time; the frames are the host frontend's; the spans are the branch's
+    and the pass runs off the calling thread."""
+    import threading
+    import time
+
+    from nfclab_torch.dsp import cuda_channels as cc
+    from nfclab_torch.runtime import trace
+    from nfclab_torch.runtime.batch import decode_batch
+
+    monkeypatch.setattr(cc, "CHAIN_CHUNK", 4096)
+    monkeypatch.setattr(cc, "BATCH_K_CHUNKS", 4)
+    ran = []
+    run = cc.run_chained_masks
+
+    def counted(blocks, *args, **kw):
+        ran.append(blocks.shape[0])
+        return run(blocks, *args, **kw)
+
+    monkeypatch.setattr(cc, "run_chained_masks", counted)
+    paths = wavs[:2]
+    want = decode_batch(paths, conditioner="native", pool="thread")
+    stats: dict = {}
+    trace.clear()
+    t0 = time.perf_counter()
+    with trace.enable():
+        got = decode_batch(paths, frontend="mask", device="cpu",
+                           pool="thread", stats=stats)
+    wall = time.perf_counter() - t0
+    spans = trace.spans()
+    trace.clear()
+    for p in paths:
+        assert got[p], p
+        assert _lines(got[p]) == _lines(want[p]), p
+    for k in ("masks_s", "native_condition_s", "masks_wait_s", *MASK_STEPS):
+        assert stats[k] > 0, k
+    assert len(ran) == 4 and stats["masks_windows"] == sum(ran) == 8
+    assert stats["masks_s"] >= sum(stats[k] for k in MASK_STEPS)
+    parent = sum(stats[k] for k in ("read_s", "native_condition_s",
+                                    "masks_wait_s", "pool_s",
+                                    "walk_wait_s"))
+    assert 0.90 * wall <= parent <= 1.01 * wall, (parent, wall)
+    assert not {"condition_s", "upload_s", "fetch_s", "windows"} & set(stats)
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    me = threading.current_thread().name
+    (masks,) = by["batch.masks"]
+    assert masks.thread != me
+    assert masks.args == {"captures": 2,
+                          "samples": sum(len(tp.samples)
+                                         for tp in TEMPLATES[:2])}
+    assert [s.thread for s in by["batch.condition_native"]] == [me, me]
+    assert [s.thread for s in by["batch.masks_wait"]] == [me]
+    assert {s.parent for s in by["launch"]} == {masks.id}
+
+
+@pytest.mark.parametrize("conditioner", ["native", "jax"])
+def test_decode_batch_host_counters_unchanged(conditioner, wavs,
+                                              cpu_conditioner):
+    """The host frontend's counters and spans are those it kept before the
+    mask branch had any: nothing of the mask branch's."""
+    from nfclab_torch.runtime import trace
+    from nfclab_torch.runtime.batch import decode_batch
+
+    keys = {"captures", "thread_walks", "samples", "read_s", "pool_s",
+            "walk_wait_s"}
+    if conditioner == "jax":
+        keys |= {"condition_s", "blocks", "repairs", "upload_s", "pass1_s",
+                 "verify_s", "repair_s", "fetch_s", "edge_tracker_s",
+                 "edge_native"}
+    stats: dict = {}
+    trace.clear()
+    with trace.enable():
+        decode_batch(wavs[:2], conditioner=conditioner, pool="thread",
+                     device="cpu", stats=stats)
+    names = {s.name for s in trace.spans() if s.name.startswith("batch.")}
+    trace.clear()
+    assert set(stats) == keys
+    assert names == {"batch.read", "batch.pool", "batch.walk"} | (
+        {"batch.condition"} if conditioner == "jax" else set())
 
 
 def _cli(module, *args, env=None):
